@@ -1,0 +1,78 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/<name>.cu` has a plain C entry point. It is compiled with nvcc
+for sm_90a into a shared library under `build/kernels/` at the root of
+the checkout (listed in .gitignore), named by a hash of its source and
+flags so that an edited source is rebuilt, and loaded with ctypes. The
+build happens at first use, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+#: seconds each kernel took to compile in this process (absent: cached)
+BUILD_SECONDS: dict[str, float] = {}
+
+
+def nvcc() -> str:
+    """Path of nvcc: on PATH, else under CUDA_HOME / CUDA_PATH, else
+    where PyTorch's extension builder finds the toolkit."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    homes = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")]
+    if not any(homes):
+        from torch.utils.cpp_extension import CUDA_HOME
+        homes.append(CUDA_HOME)
+    for home in homes:
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> str:
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Compile `csrc/<name>.cu` if its library is missing, and load it.
+    The compiler's resource report (-Xptxas -v) goes to `<library>.log`."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        so = library_path(name)
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC, name + ".cu")]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{r.stderr}")
+            BUILD_SECONDS[name] = time.perf_counter() - t0
+            with open(so + ".log", "w") as f:
+                f.write(r.stdout + r.stderr)
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        _libs[name] = lib
+        return lib

@@ -1,0 +1,556 @@
+"""Pass 1 of the two-pass decoder: raw-DEFLATE streams -> LZ tokens.
+
+Port of `libdeflate_rsx_tpu/ops/pallas/inflate_tokens.py`. The Pallas
+kernel `_make_kernel` becomes the CUDA kernel in
+`csrc/inflate_tokens.cu`, one thread per stream. `pass1_plain` beside it
+is the plain PyTorch version of the same function: it decodes all
+streams of a batch in lockstep with tensor ops over the batch dimension.
+`pass1` takes the kernel for a CUDA tensor and the plain version for a
+CPU tensor, and nothing else.
+
+Both compute what the JAX kernel computes, not its schedule. Inputs are
+one flat uint8 tensor of the concatenated streams, int64 offsets and
+int32 lengths; bits past a stream's end read as 0. Outputs are compact
+tokens (B, out_cap) int32 in the `ops/tokens.py` format (no NOPs, zeros
+after the last token) and stats (B, 4) int32: mode (DONE=6, BAD=7),
+output length, bits consumed and token count. There is no step budget:
+a well-formed stream within the caps always finishes DONE.
+
+The verdicts are the JAX kernel's, rule for rule, including its step
+granularity for the overrun check: a stream whose bit position passes
+8*len at the end of a step while still active is BAD. A step is one
+header phase (BTYPE, one precode length, or one code-length symbol or
+repeat write), one body symbol (with its distance), or one stored byte;
+the static block header and the first stored byte share their step with
+the first body symbol or byte, and the last code-length symbol shares
+its step with the table build and the first body symbol, as in the JAX
+kernel when no lane stalls. Code-length symbol 16 repeats the previous
+*literal* code length, as the JAX kernel does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from libdeflate_rsx_tpu.ops.tokens import KIND_LIT, KIND_MATCH, KIND_SHIFT
+
+from . import _build
+
+# stream modes (active = mode < DONE)
+BLKSTART, PRELEN, LENS, AWAITBUILD, BODY, STORED, DONE, BAD = range(8)
+STATS = 4           # stats columns: mode, outlen, bits consumed, ntokens
+
+# precode length order (RFC 1951 3.2.7)
+CLCL_ORDER = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1,
+              15)
+
+IN_CAP = 65536
+OUT_CAP = 65536
+_IN_BUCKETS = (65536, 262144, 1048576)
+_CAP_BUCKETS = (2048, 16384, 65536, 262144, 1048576)
+
+#: kernel launches made by `pass1` (the plain version does not count)
+LAUNCHES = 0
+
+_TOK_LIT = KIND_LIT << KIND_SHIFT
+_TOK_MATCH = KIND_MATCH << KIND_SHIFT
+_STORED_CHUNK = 4096     # stored bytes per lockstep step in pass1_plain
+_STATIC_LL = [8] * 144 + [9] * 112 + [7] * 24 + [8] * 8
+_STATIC_OF = [5] * 32
+
+
+def in_cap_bucket(streams) -> int:
+    """Input-capacity bucket (compressed bytes per stream)."""
+    need = max([len(x) for x in streams] or [1])
+    for b in _IN_BUCKETS:
+        if need <= b:
+            return b
+    return _IN_BUCKETS[-1]
+
+
+def cap_bucket(caps) -> int:
+    """Output-capacity bucket (decoded bytes per stream)."""
+    need = max([c for c in caps] or [1])
+    for b in _CAP_BUCKETS:
+        if need <= b:
+            return b
+    return _CAP_BUCKETS[-1]
+
+
+def pack_streams(streams: list[bytes], in_cap: int = IN_CAP,
+                 device="cpu"):
+    """Concatenate streams into the pass-1 input layout.
+
+    Returns (data uint8 (total,), offsets int64 (B,), lengths int32 (B,),
+    ok list[bool]) with the tensors on `device`. A stream that is empty
+    or longer than in_cap is not ok and enters the batch with length 0
+    (it decodes as BAD), as in the JAX package."""
+    ok = [0 < len(s) <= in_cap for s in streams]
+    lens = np.array([len(s) if o else 0 for s, o in zip(streams, ok)],
+                    np.int64)
+    offs = np.zeros(len(streams), np.int64)
+    if len(streams):
+        offs[1:] = np.cumsum(lens)[:-1]
+    flat = b"".join(s for s, o in zip(streams, ok) if o)
+    data = torch.frombuffer(bytearray(flat), dtype=torch.uint8) if flat \
+        else torch.zeros(0, dtype=torch.uint8)
+    return (data.to(device), torch.from_numpy(offs).to(device),
+            torch.from_numpy(lens.astype(np.int32)).to(device), ok)
+
+
+def _check(data, offsets, lengths, out_cap):
+    if data.dtype != torch.uint8 or data.dim() != 1:
+        raise ValueError("data must be a 1-D uint8 tensor")
+    if offsets.dtype != torch.int64 or offsets.dim() != 1:
+        raise ValueError("offsets must be a 1-D int64 tensor")
+    if lengths.dtype != torch.int32 or lengths.shape != offsets.shape:
+        raise ValueError("lengths must be int32 and shaped like offsets")
+    if not (data.device == offsets.device == lengths.device):
+        raise ValueError("data, offsets and lengths must share a device")
+    if not (data.is_contiguous() and offsets.is_contiguous()
+            and lengths.is_contiguous()):
+        raise ValueError("pass-1 inputs must be contiguous")
+    if not 0 < out_cap < (1 << 30):
+        raise ValueError(f"out_cap {out_cap} out of range")
+
+
+def _kernel_lib():
+    lib = _build.load("inflate_tokens")
+    fn = lib.ldrsx_inflate_tokens
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def pass1(data: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor,
+          out_cap: int):
+    """Entropy-decode a batch of raw-DEFLATE streams into LZ tokens.
+
+    CUDA tensors go to the CUDA kernel, CPU tensors to `pass1_plain`.
+    Returns (tokens (B, out_cap) int32, stats (B, 4) int32) on the
+    inputs' device."""
+    global LAUNCHES
+    _check(data, offsets, lengths, out_cap)
+    dev = data.device
+    if dev.type == "cpu":
+        return pass1_plain(data, offsets, lengths, out_cap)
+    if dev.type != "cuda":
+        raise ValueError(f"pass1 runs on cuda or cpu tensors, not {dev}")
+    fn = _kernel_lib()
+    b = offsets.shape[0]
+    tokens = torch.zeros((b, out_cap), dtype=torch.int32, device=dev)
+    stats = torch.zeros((b, STATS), dtype=torch.int32, device=dev)
+    if b == 0:
+        return tokens, stats
+    with torch.cuda.device(dev):
+        rc = fn(data.data_ptr(), offsets.data_ptr(), lengths.data_ptr(), b,
+                out_cap, tokens.data_ptr(), stats.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"inflate_tokens kernel launch failed: "
+                           f"CUDA error {rc}")
+    LAUNCHES += 1
+    return tokens, stats
+
+
+# ------------------------------------------------------------ plain version
+def _rev15(x):
+    x = ((x & 0x5555) << 1) | ((x >> 1) & 0x5555)
+    x = ((x & 0x3333) << 2) | ((x >> 2) & 0x3333)
+    x = ((x & 0x0F0F) << 4) | ((x >> 4) & 0x0F0F)
+    x = ((x & 0x00FF) << 8) | ((x >> 8) & 0x00FF)
+    return x >> 1
+
+
+def _build_canonical(lens, nperm):
+    """Canonical-code tables from code lengths, per row.
+
+    lens (B, nsym) int64 in 0..15 -> (lim (B, 16), fb (B, 16),
+    perm (B, nperm), over-subscribed (B,)). lim rows are MSB-aligned
+    15-bit limits (row 0 unused), fb = base index - first code, perm the
+    symbols sorted by (length, symbol) and zero past the coded ones."""
+    b, nsym = lens.shape
+    dev = lens.device
+    ls = torch.arange(16, device=dev)
+    cnt = (lens[:, :, None] == ls).sum(dim=1)
+    cnt[:, 0] = 0
+    kraft = (cnt[:, 1:] << (15 - ls[1:])).sum(dim=1)
+    code = torch.zeros(b, dtype=torch.int64, device=dev)
+    bidx = torch.zeros_like(code)
+    lim = [torch.full_like(code, 1 << 29)]
+    fb = [torch.zeros_like(code)]
+    for l in range(1, 16):
+        lim.append((code + cnt[:, l]) << (15 - l))
+        fb.append(bidx - code)
+        code = (code + cnt[:, l]) << 1
+        bidx = bidx + cnt[:, l]
+    syms = torch.arange(nsym, device=dev)
+    key = torch.where(lens > 0, lens * 512 + syms, 16 * 512 + syms)
+    order = torch.sort(key, dim=1).indices
+    coded = torch.arange(nsym, device=dev) < bidx[:, None]
+    perm = torch.zeros((b, nperm), dtype=torch.int64, device=dev)
+    perm[:, :nsym] = torch.where(coded, order, 0)
+    return (torch.stack(lim, 1), torch.stack(fb, 1), perm,
+            kraft > (1 << 15))
+
+
+def _decode(pk, lim, fb, perm, nperm):
+    """One canonical decode per row from the low 15 peeked bits:
+    (symbol, code length clipped to 1..15, undecodable)."""
+    v15 = _rev15(pk & 0x7FFF)
+    length = 1 + (v15[:, None] >= lim[:, 1:16]).sum(dim=1)
+    lc = length.clamp(1, 15)
+    off = (v15 >> (15 - lc)) + fb.gather(1, lc[:, None])[:, 0]
+    sym = perm.gather(1, off.clamp(0, nperm - 1)[:, None])[:, 0]
+    return sym, lc, length >= 16
+
+
+def _len_extra(sym):
+    ls = sym - 257
+    eb = torch.where(ls < 8, 0, torch.where(ls == 28, 0, (ls >> 2) - 1))
+    base = torch.where(ls < 8, ls + 3,
+                       torch.where(ls == 28, 258, ((4 + (ls & 3)) << eb) + 3))
+    return eb, base
+
+
+def _dist_extra(dsym):
+    deb = ((dsym >> 1) - 1).clamp(min=0)
+    dbase = torch.where(dsym < 4, dsym + 1, ((2 + (dsym & 1)) << deb) + 1)
+    return deb, dbase
+
+
+def _where_rows(mask, new, old):
+    return torch.where(mask[:, None], new, old)
+
+
+def _where_code(mask, new, old):
+    """Per-row select of a code's (lim, fb, perm) tables."""
+    return tuple(_where_rows(mask, n, o) for n, o in zip(new, old))
+
+
+def _put(t, col, mask, val):
+    """t[b, col[b]] = val[b] for the rows b in mask (out of place)."""
+    c = col[:, None]
+    cur = t.gather(1, c)[:, 0]
+    return t.scatter(1, c, torch.where(mask, val, cur)[:, None])
+
+
+def pass1_plain(data: torch.Tensor, offsets: torch.Tensor,
+                lengths: torch.Tensor, out_cap: int):
+    """Plain PyTorch pass 1: the same (tokens, stats) as the CUDA kernel.
+
+    All streams advance in lockstep, one step per loop iteration (see the
+    module docstring for what a step is); stored bytes advance up to
+    _STORED_CHUNK steps at once, with the per-step checks applied byte by
+    byte. Runs on any device."""
+    _check(data, offsets, lengths, out_cap)
+    dev = data.device
+    i64 = torch.int64
+    b = offsets.shape[0]
+    stats = torch.zeros((b, STATS), dtype=torch.int32, device=dev)
+    if b == 0:
+        return torch.zeros((b, out_cap), dtype=torch.int32, device=dev), stats
+    src = torch.cat([data.to(i64), torch.zeros(1, dtype=i64, device=dev)])
+    nsrc = src.numel()
+    off = offsets.to(i64)
+    ln = lengths.to(i64)
+    inbits = ln * 8
+    ar = torch.arange(b, device=dev)
+    order = torch.tensor(CLCL_ORDER, dtype=i64, device=dev)
+
+    def byte_at(idx):       # (B, k) byte indices -> bytes, 0 past the end
+        inb = (idx >= 0) & (idx < ln[:, None])
+        g = src[(off[:, None] + idx).clamp(0, nsrc - 1)]
+        return torch.where(inb, g, 0)
+
+    # 40-bit little-endian window at every byte of the flat input
+    win = src.clone()
+    for k in range(1, 5):
+        win[:-k] |= src[k:] << (8 * k)
+
+    def peek(bitpos):       # 32 bits of each stream from bitpos
+        byte = bitpos >> 3
+        nvalid = (ln - byte).clamp(0, 5)
+        v = win[(off + byte).clamp(0, nsrc - 1)] & ((1 << (8 * nvalid)) - 1)
+        return (v >> (bitpos & 7)) & 0xFFFFFFFF
+
+    trash = b * out_cap
+    toks = torch.zeros(trash + 1, dtype=torch.int32, device=dev)
+    z = torch.zeros(b, dtype=i64, device=dev)
+    mode, final, outpos, srem = z.clone(), z.clone(), z.clone(), z.clone()
+    nlit, ndist, hclen, idx = z.clone(), z.clone(), z.clone(), z.clone()
+    prev, rep, repval = z - 1, z.clone(), z.clone()
+    bitpos, ntok = z.clone(), z.clone()
+
+    def emit(mask, tok):
+        nonlocal ntok
+        where = torch.where(mask, ar * out_cap + ntok, trash)
+        toks[where] = tok.to(torch.int32)
+        ntok = ntok + mask.to(i64)
+
+    ll_lens = torch.zeros((b, 288), dtype=i64, device=dev)
+    of_lens = torch.zeros((b, 32), dtype=i64, device=dev)
+    pre_lens = torch.zeros((b, 19), dtype=i64, device=dev)
+    s_ll = _build_canonical(torch.tensor([_STATIC_LL], device=dev), 288)
+    s_of = _build_canonical(torch.tensor([_STATIC_OF], device=dev), 32)
+    ll_code = tuple(t.expand(b, -1) for t in s_ll[:3])    # (lim, fb, perm)
+    of_code = tuple(t.expand(b, -1) for t in s_of[:3])
+    pre_code = _build_canonical(pre_lens, 19)[:3]
+    kchunk = torch.arange(_STORED_CHUNK, device=dev)
+
+    while True:
+        mode0 = mode
+        flags = torch.stack([(mode0 < DONE).any(), (mode0 == BLKSTART).any(),
+                             (mode0 == PRELEN).any(), (mode0 == LENS).any(),
+                             (mode0 == BODY).any(),
+                             (mode0 == STORED).any()]).tolist()
+        any_act, any_blk, any_pre, any_lens, any_body, any_stored = flags
+        if not any_act:
+            break
+
+        if any_blk:                              # block header
+            mS = mode0 == BLKSTART
+            pk = peek(bitpos)
+            final = torch.where(mS, pk & 1, final)
+            btype = (pk >> 1) & 3
+            bp = bitpos + torch.where(mS, 3, 0)
+            bad = mS & (btype == 3)
+            mSt = mS & (btype == 0)
+            bp = bp + torch.where(mSt, (8 - (bp & 7)) & 7, 0)
+            pk2 = peek(bp)
+            slen = pk2 & 0xFFFF
+            bad = bad | (mSt & (slen != (((pk2 >> 16) & 0xFFFF) ^ 0xFFFF)))
+            bp = bp + torch.where(mSt, 32, 0)
+            srem = torch.where(mSt, slen, srem)
+            mStat = mS & (btype == 1)
+            ll_code = _where_code(mStat, s_ll, ll_code)
+            of_code = _where_code(mStat, s_of, of_code)
+            mDyn = mS & (btype == 2)
+            nlit = torch.where(mDyn, 257 + ((pk >> 3) & 31), nlit)
+            ndist = torch.where(mDyn, 1 + ((pk >> 8) & 31), ndist)
+            hclen = torch.where(mDyn, 4 + ((pk >> 13) & 15), hclen)
+            bp = bp + torch.where(mDyn, 14, 0)
+            bad = bad | (mDyn & ((nlit > 286) | (ndist > 30)))
+            idx = torch.where(mDyn, 0, idx)
+            prev = torch.where(mDyn, -1, prev)
+            rep = torch.where(mDyn, 0, rep)
+            ll_lens = _where_rows(mDyn, 0, ll_lens)
+            of_lens = _where_rows(mDyn, 0, of_lens)
+            pre_lens = _where_rows(mDyn, 0, pre_lens)
+            after = torch.where(final == 1, DONE, BLKSTART)
+            mode = torch.where(mSt, torch.where(slen > 0, STORED, after), mode)
+            mode = torch.where(mStat, BODY, mode)
+            mode = torch.where(mDyn, PRELEN, mode)
+            mode = torch.where(bad, BAD, mode)
+            bitpos = bp
+
+        if any_pre:                              # one precode length
+            mP = mode0 == PRELEN
+            pk = peek(bitpos)
+            pre_lens = _put(pre_lens, order[idx.clamp(0, 18)], mP, pk & 7)
+            bitpos = bitpos + torch.where(mP, 3, 0)
+            idx = torch.where(mP, idx + 1, idx)
+            mPd = mP & (idx >= hclen)
+            if bool(mPd.any()):
+                new = _build_canonical(pre_lens, 19)
+                pre_code = _where_code(mPd, new, pre_code)
+                mode = torch.where(mPd, torch.where(new[3], BAD, LENS), mode)
+                idx = torch.where(mPd, 0, idx)
+
+        if any_lens:                             # one code-length step
+            mL = mode0 == LENS
+            drain = mL & (rep > 0)
+            dec = mL & ~drain
+            pk = peek(bitpos)
+            sym, clen, badc = _decode(pk, *pre_code, 19)
+            e16 = dec & (sym == 16)
+            e17 = dec & (sym == 17)
+            e18 = dec & (sym == 18)
+            elit = dec & (sym <= 15)
+            rbits = torch.where(e16, 2, torch.where(e17, 3,
+                                                    torch.where(e18, 7, 0)))
+            rv = (pk >> clen) & ((1 << rbits) - 1)
+            bitpos = bitpos + torch.where(dec, clen + rbits, 0)
+            newrep = torch.where(e16 | e17, 3 + rv,
+                                 torch.where(e18, 11 + rv, 0))
+            repval = torch.where(e16, prev,
+                                 torch.where(e17 | e18, 0, repval))
+            bad = (dec & badc) | (e16 & (prev < 0)) \
+                | (dec & ~elit & (idx + newrep > nlit + ndist))
+            wval = torch.where(elit, sym, repval)
+            wmask = elit | drain
+            ll_lens = _put(ll_lens, idx.clamp(0, 287), wmask & (idx < nlit),
+                           wval)
+            of_lens = _put(of_lens, (idx - nlit).clamp(0, 31),
+                           wmask & (idx >= nlit), wval)
+            idx = torch.where(wmask, idx + 1, idx)
+            rep = torch.where(drain, rep - 1, torch.where(dec, newrep, rep))
+            prev = torch.where(elit, sym, prev)
+            mW = mL & (idx >= nlit + ndist) & ~bad
+            mode = torch.where(bad, BAD, mode)
+            if bool(mW.any()):                   # table build
+                new_ll = _build_canonical(ll_lens, 288)
+                new_of = _build_canonical(of_lens[:, :30], 32)
+                ll_code = _where_code(mW, new_ll, ll_code)
+                of_code = _where_code(mW, new_of, of_code)
+                over = new_ll[3] | new_of[3]
+                mode = torch.where(mW, torch.where(over, BAD, BODY), mode)
+
+        # one body symbol (and its distance) per BODY stream
+        if any_body or any_blk or any_lens:
+            mB = mode == BODY
+            pk = peek(bitpos)
+            sym, clen, badc = _decode(pk, *ll_code, 288)
+            is_lit = mB & (sym < 256)
+            is_eob = mB & (sym == 256)
+            is_len = mB & (sym > 256)
+            eb, lbase = _len_extra(sym)
+            length = lbase + ((pk >> clen) & ((1 << eb) - 1))
+            bitpos = bitpos + torch.where(mB, clen, 0) \
+                + torch.where(is_len, eb, 0)
+            badb = mB & (badc | (sym > 285))
+            badb = badb | (is_lit & (outpos + 1 > out_cap))
+            wlit = is_lit & ~badb
+            emit(wlit, _TOK_LIT | sym)
+            outpos = outpos + wlit.to(i64)
+            mode = torch.where(is_eob, torch.where(final == 1, DONE, BLKSTART),
+                               mode)
+            mode = torch.where(badb, BAD, mode)
+            mM = is_len & ~badb
+            if bool(mM.any()):
+                pk = peek(bitpos)
+                dsym, dlen, dbadc = _decode(pk, *of_code, 32)
+                deb, dbase = _dist_extra(dsym)
+                dist = dbase + ((pk >> dlen) & ((1 << deb) - 1))
+                bitpos = bitpos + torch.where(mM, dlen + deb, 0)
+                badd = mM & (dbadc | (dsym > 29) | (dist > outpos)
+                             | (outpos + length > out_cap))
+                wm = mM & ~badd
+                emit(wm, _TOK_MATCH | (length - 3) | ((dist - 1) << 8))
+                outpos = torch.where(wm, outpos + length, outpos)
+                mode = torch.where(badd, BAD, mode)
+
+        if any_stored or (any_blk and bool((mode == STORED).any())):
+            # stored bytes, up to _STORED_CHUNK steps at once
+            mV = mode == STORED
+            n = torch.clamp(srem, max=_STORED_CHUNK)
+            i_cap = out_cap - outpos
+            q = inbits - bitpos
+            i_over = torch.where(q >= 0, q >> 3, 0)
+            last_final = (i_over == srem - 1) & (final == 1)
+            i_over = torch.where(last_final, _STORED_CHUNK + 1, i_over)
+            by_cap = (i_cap < n) & (i_cap <= i_over)
+            by_over = ~by_cap & (i_over < n)
+            nemit = torch.where(by_cap, i_cap,
+                                torch.where(by_over, i_over + 1, n))
+            nuse = torch.where(by_cap, i_cap + 1, nemit)
+            nemit = torch.where(mV, nemit, 0)
+            nuse = torch.where(mV, nuse, 0)
+            em = kchunk < nemit[:, None]
+            byts = byte_at((bitpos >> 3)[:, None] + kchunk)
+            where = torch.where(em, (ar * out_cap + ntok)[:, None] + kchunk,
+                                trash)
+            toks[where] = (_TOK_LIT | byts).to(torch.int32)
+            ntok = ntok + nemit
+            outpos = outpos + nemit
+            bitpos = bitpos + 8 * nuse
+            srem = srem - nuse
+            stop = mV & (by_cap | by_over)
+            after = torch.where(final == 1, DONE, BLKSTART)
+            mode = torch.where(mV & (srem == 0), after, mode)
+            mode = torch.where(stop, BAD, mode)
+
+        # consumed past the stream end while still active -> malformed
+        mode = torch.where((mode < DONE) & (bitpos > inbits), BAD, mode)
+
+    stats = torch.stack([mode, outpos, bitpos, ntok], dim=1).to(torch.int32)
+    return toks[:trash].view(b, out_cap), stats
+
+
+# ------------------------------------------------------------ batch wrappers
+def decode_streams(streams: list[bytes], out_cap: int = OUT_CAP,
+                   in_cap: int | None = None, device="cuda"):
+    """Pack streams and run pass 1 on `device`.
+
+    Returns (tokens (B, out_cap) int32 on device, stats (B, 4) int32
+    numpy, ok list[bool]); a stream that is not ok never decodes."""
+    if in_cap is None:
+        in_cap = in_cap_bucket(streams)
+    data, offsets, lengths, ok = pack_streams(streams, in_cap, device)
+    tokens, stats = pass1(data, offsets, lengths, out_cap)
+    return tokens, stats.cpu().numpy(), ok
+
+
+def _resolve_one(job):
+    from libdeflate_rsx_tpu.native.host import native_resolve_tokens
+    from libdeflate_rsx_tpu.ops.tokens import resolve_tokens_np
+
+    col, outlen = job
+    try:
+        return native_resolve_tokens(col, outlen)
+    except LookupError:
+        return resolve_tokens_np(col, outlen)
+
+
+def resolve_streams(tokens, stats, out_cap: int, where: str = "device"):
+    """Pass 2 for every stream of a pass-1 batch, whatever its mode:
+    list[bytes | None], None where resolution fails. where="device"
+    resolves on the tokens' device (only bytes cross to the host);
+    "host" with the native resolver (numpy fallback) on the host pool."""
+    from ..hostpool import pmap
+    from .resolve import resolve_batch
+
+    n = stats.shape[0]
+    ntok = max(1, int(stats[:, 3].max()))
+    if where == "device":
+        out, outlen, ok = resolve_batch(tokens[:, :ntok], out_cap)
+        out_h = out[:, :max(1, int(stats[:, 1].max()))].cpu().numpy()
+        len_h = outlen.cpu().numpy()
+        ok_h = ok.cpu().numpy()
+        return [out_h[i, :len_h[i]].tobytes() if ok_h[i] else None
+                for i in range(n)]
+    toks = tokens[:, :ntok].cpu().numpy()
+    return pmap(_resolve_one,
+                [(toks[i, :stats[i, 3]], int(stats[i, 1])) for i in range(n)])
+
+
+def _finished(streams, out_cap, in_cap, device, where):
+    if not streams:
+        return []
+    tokens, stats, ok = decode_streams(streams, out_cap, in_cap, device)
+    got = resolve_streams(tokens, stats, out_cap, where)
+    return [g if ok[i] and stats[i, 0] == DONE and g is not None
+            and len(g) == stats[i, 1] else None for i, g in enumerate(got)]
+
+
+def decode_tokens_device(streams: list[bytes], out_cap: int = OUT_CAP,
+                         in_cap: int | None = None, device="cuda"):
+    """Pass 1: raw-DEFLATE streams -> per-stream (token column int32
+    numpy array | None, expected outlen). Streams over the input cap or
+    not DONE give (None, 0)."""
+    if not streams:
+        return []
+    tokens, stats, ok = decode_streams(streams, out_cap, in_cap, device)
+    toks = tokens[:, :max(1, int(stats[:, 3].max()))].cpu().numpy()
+    return [(toks[i, :stats[i, 3]].copy(), int(stats[i, 1]))
+            if ok[i] and stats[i, 0] == DONE else (None, 0)
+            for i in range(len(streams))]
+
+
+def inflate_device_tokens(streams: list[bytes], out_cap: int = OUT_CAP,
+                          in_cap: int | None = None, device="cuda"):
+    """Two-pass decode, pass 2 on the host. Returns list[bytes | None]."""
+    return _finished(streams, out_cap, in_cap, device, "host")
+
+
+def inflate_device_fused(streams: list[bytes], out_cap: int = OUT_CAP,
+                         in_cap: int | None = None, device="cuda"):
+    """Two-pass decode with both passes on `device`: the tokens never
+    leave it, only decoded bytes do. Returns list[bytes | None]."""
+    return _finished(streams, out_cap, in_cap, device, "device")

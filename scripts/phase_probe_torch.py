@@ -1,0 +1,172 @@
+#!/usr/bin/env python3
+"""Phase breakdown of the PyTorch port's main path on one CUDA card.
+
+Usage: python3 scripts/phase_probe_torch.py [--out FILE]
+
+Times, with the card synchronised around each phase: BatchCompressor
+cold and warm; the L6 encode phases of a BatchCompressor run (split,
+host-to-device, analyze, host table step, emit, device-to-host, host
+assembly, join), read at the flow's own phase ends; the
+pass-1 kernel and resolve_batch at the main path's shapes (CUDA
+events); the plain pass 1 on the 256-slice decode set (host clock);
+BatchDecompressor on both decode sets; and the device busy share of one
+decompress and one compress from torch.profiler. Each line is printed,
+and copied to FILE when given. Needs one CUDA card; the corpus and the
+card and build phases are chip_smoke.py's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCK = 65536
+
+
+def sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def lap(t0: float) -> tuple[float, float]:
+    """(milliseconds since t0 after a device sync, now)."""
+    sync()
+    now = time.perf_counter()
+    return 1e3 * (now - t0), now
+
+
+def encode_phases(bc, items, say):
+    """Phase times of one BatchCompressor run, taken where the L6 flow
+    ends each phase (models/greedy_dynamic.PHASE_END), with the card
+    synchronised there: the phases of the path itself, serialised."""
+    from libdeflate_rsx_tpu_torch.models import greedy_dynamic as g
+
+    ms = {}
+    last = [0.0]
+
+    def end(name):
+        ms[name], last[0] = lap(last[0])
+
+    sync()
+    g.PHASE_END = end
+    try:
+        t0 = last[0] = time.perf_counter()
+        bc.compress_batch(items)
+        total = lap(t0)[0]
+    finally:
+        g.PHASE_END = None
+    blocks = sum(max(1, -(-len(d) // BLOCK)) for d in items)
+    say(f"compress phases ({blocks} blocks, total {total:.1f}): " + " ".join(
+        f"{k} {v:.1f}" for k, v in ms.items()) + " ms")
+
+
+def busy_share(name, fn, say):
+    """Device busy share of fn(): the self time of the records on the
+    device's timeline (kernels, copies, sets) over the wall time. The
+    operator rows that carry their kernels' time are host records and
+    are not counted again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in ka
+                 if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation)
+    say(f"profile {name}: wall {wall * 1e3:.1f} ms, device time "
+        f"{dev_us / 1e3:.1f} ms, busy share {dev_us / 1e6 / wall:.3f}")
+    say(ka.table(sort_by="self_device_time_total", row_limit=12,
+                 max_name_column_width=50))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="also write every line to this file")
+    args = ap.parse_args()
+    with contextlib.ExitStack() as stack:
+        out = stack.enter_context(open(args.out, "w")) if args.out else None
+
+        def say(msg: str) -> None:
+            print(msg, flush=True)
+            if out is not None:
+                print(msg, file=out, flush=True)
+
+        return probe(say)
+
+
+def probe(say) -> int:
+    sys.path.insert(0, ROOT)
+    import torch
+
+    import chip_smoke as cs
+    from libdeflate_rsx_tpu_torch import BatchCompressor, BatchDecompressor
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+    from libdeflate_rsx_tpu_torch.ops.resolve import resolve_batch
+
+    if not torch.cuda.is_available():
+        print("phase_probe_torch: no CUDA device", file=sys.stderr)
+        return 1
+    cs.phase_card()
+    cs.phase_build()
+    data = cs.corpus()
+    items = [data[i:i + cs.ITEM] for i in range(0, len(data), cs.ITEM)]
+
+    bc = BatchCompressor(level=6, use_device=True, device="cuda")
+    for label in ("cold", "warm", "warm"):
+        t0 = time.perf_counter()
+        comp = bc.compress_batch(items)
+        say(f"compress_batch {label} {lap(t0)[0]:.1f} ms")
+    for _ in range(2):
+        encode_phases(bc, items, say)
+
+    chunks = [data[i * BLOCK:(i + 1) * BLOCK] for i in range(cs.N_SLICES)]
+    streams = [cs.raw_z(c) for c in chunks]
+    a256 = it.pack_streams(streams, BLOCK, "cuda")[:3]
+    a17 = it.pack_streams(comp, cs.ITEM, "cuda")[:3]
+    ms256 = cs.time_cuda(lambda: it.pass1(*a256, BLOCK), 5)
+    ms17 = cs.time_cuda(lambda: it.pass1(*a17, cs.ITEM), 5)
+    tok256, st256 = it.pass1(*a256, BLOCK)
+    tok17, st17 = it.pass1(*a17, cs.ITEM)
+    say(f"kernel 256x64KiB {ms256:.3f} ms; kernel 17x1MiB {ms17:.3f} ms "
+        f"(max tokens {int(st17[:, 3].max())})")
+    n256, n17 = int(st256[:, 3].max()), int(st17[:, 3].max())
+    r256 = cs.time_cuda(lambda: resolve_batch(tok256[:, :n256], BLOCK), 5)
+    r17 = cs.time_cuda(lambda: resolve_batch(tok17[:, :n17], cs.ITEM), 3)
+    say(f"resolve 256x64KiB {r256:.3f} ms; resolve 17x1MiB {r17:.3f} ms")
+    t0 = time.perf_counter()
+    tp, sp = it.pass1_plain(*a256, BLOCK)
+    plain = lap(t0)[0]
+    assert torch.equal(tp, tok256) and torch.equal(sp, st256)
+    say(f"plain 256x64KiB {plain:.1f} ms (equal to the kernel)")
+
+    sets = (("zlib-6 slices", streams, chunks, [BLOCK] * len(streams)),
+            ("L6 items", comp, items, [cs.ITEM] * len(comp)))
+    for name, ss, orig, caps in sets:
+        bd = BatchDecompressor(use_device=True, resolve="device",
+                               device="cuda")
+        for rep in range(3):
+            t0 = time.perf_counter()
+            got = bd.decompress_batch(ss, caps)
+            say(f"decompress {name} rep{rep} {lap(t0)[0]:.1f} ms")
+        assert got == orig and not bd.fallbacks
+
+    bd = BatchDecompressor(use_device=True, resolve="device", device="cuda")
+    busy_share("decompress zlib-6 slices",
+               lambda: bd.decompress_batch(streams, [BLOCK] * len(streams)),
+               say)
+    busy_share("compress", lambda: bc.compress_batch(items), say)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
