@@ -1,43 +1,56 @@
 """libdeflate_rsx_tpu_torch — the PyTorch and CUDA port of
-libdeflate_rsx_tpu's device paths, for NVIDIA Hopper (H100).
+libdeflate_rsx_tpu, for NVIDIA Hopper (H100).
 
-The host surface (one-shot and streaming codecs, checksums) is the JAX
-package's JAX-free host layer, re-exported here; the batch classes are
-the port's own and run their device tiers on a CUDA device:
+The port keeps its own copy of the JAX package's host layer (one-shot
+and streaming codecs, containers, checksums, the pure-Python engine of
+models/portable/) and imports nothing of the JAX package. The batch
+classes run their device tiers on a CUDA device:
 
 - `BatchCompressor(level=6..9, use_device=True)`: the L6 ratio tier
   (models/greedy_dynamic.py), byte-identical to the JAX package's;
-- `BatchDecompressor(use_device=True)`: the two-pass decoder, a CUDA
-  pass-1 kernel (csrc/inflate_tokens.cu) and LZ resolution on the
-  device or the host.
+- `BatchDecompressor(use_device=True)`: a batch of fewer than 8 items
+  goes to the small-batch decoder (ops/inflate_v2.py, CUDA kernel
+  csrc/inflate_v2.cu); 8 or more to the two-pass decoder, a CUDA pass-1
+  kernel (csrc/inflate_tokens.cu) and LZ resolution on the device or
+  the host.
 
-This package imports `torch` and never `jax`.
+`ops.inflate_device_static` decodes stored and static-Huffman streams
+(csrc/inflate_static.cu). This package imports `torch` and never `jax`.
 """
 
-from libdeflate_rsx_tpu import adler32, crc32
-from libdeflate_rsx_tpu.api import (
+from .api import (
     Compressor,
     Decompressor,
     deflate_compress_bound,
     gzip_compress_bound,
     zlib_compress_bound,
 )
-from libdeflate_rsx_tpu.stream import (
-    DeflateDecoder,
-    DeflateEncoder,
-    GzipDecoder,
-    GzipEncoder,
-)
-
 from .batch import BatchCompressor, BatchDecompressor
+from .engine import Deflater
+from .engine import adler32 as adler32_host
+from .engine import crc32 as crc32_host
+from .stream import DeflateDecoder, DeflateEncoder, GzipDecoder, GzipEncoder
+from .utils import errors
 
 __version__ = "0.1.0"
+
+
+def crc32(data, crc: int = 0) -> int:
+    """CRC-32 (gzip polynomial) of `data`, continuing from `crc`."""
+    return crc32_host(bytes(data), crc)
+
+
+def adler32(data, adler: int = 1) -> int:
+    """Adler-32 (zlib) of `data`, continuing from `adler`."""
+    return adler32_host(bytes(data), adler)
+
 
 __all__ = [
     "Compressor",
     "Decompressor",
     "BatchCompressor",
     "BatchDecompressor",
+    "Deflater",
     "DeflateEncoder",
     "DeflateDecoder",
     "GzipEncoder",
@@ -47,5 +60,6 @@ __all__ = [
     "deflate_compress_bound",
     "zlib_compress_bound",
     "gzip_compress_bound",
+    "errors",
     "__version__",
 ]

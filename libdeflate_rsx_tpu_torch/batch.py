@@ -2,7 +2,10 @@
 
 Port of `libdeflate_rsx_tpu/batch.py`. `BatchCompressor` runs the L6
 ratio tier (`models/greedy_dynamic.deflate_device_l6_many`) at levels
-6-9; `BatchDecompressor` runs the two-pass decoder: the pass-1 kernel
+6-9. `BatchDecompressor` routes a device batch as the JAX package does:
+fewer than SMALL_BATCH items go to the small-batch decoder
+(`ops/inflate_v2.inflate_v2`, one stream per block, 64 KiB caps); larger
+batches to the two-pass decoder: the pass-1 kernel
 (`ops/inflate_tokens.pass1`), then LZ resolution on the device
 (`ops/resolve.resolve_batch`) or on the host. Container headers and
 checksums are handled on the host. An item the device path cannot take
@@ -16,16 +19,15 @@ import collections
 
 import torch
 
-from libdeflate_rsx_tpu import containers
-from libdeflate_rsx_tpu.common import MAX_LEVEL, MIN_LEVEL
-from libdeflate_rsx_tpu.engine import adler32 as adler32_host
-from libdeflate_rsx_tpu.engine import compress_raw
-from libdeflate_rsx_tpu.engine import crc32 as crc32_host
-from libdeflate_rsx_tpu.models.portable.deflate import Flush
-from libdeflate_rsx_tpu.utils.errors import DeflateError, LevelError
-
+from . import containers
+from .common import MAX_LEVEL, MIN_LEVEL
+from .engine import adler32 as adler32_host
+from .engine import compress_raw
+from .engine import crc32 as crc32_host
 from .hostpool import pmap
-from .ops import inflate_tokens
+from .models.portable.deflate import Flush
+from .utils.errors import DeflateError, LevelError
+from .ops import inflate_tokens, inflate_v2
 
 # the L6 ratio tier; levels 0-5 have device tiers in the JAX package that
 # are not ported yet, levels 10-12 are host-only there too
@@ -33,6 +35,7 @@ DEVICE_LEVELS_L6 = {6, 7, 8, 9}
 DEVICE_LEVELS_TODO = {0, 1, 2, 3, 4, 5}
 MAX_STREAM = 1 << 20     # device decode cap per stream, in and out
 MAX_MATCH = 258          # longest DEFLATE match
+SMALL_BATCH = 8          # device batches below this go to inflate_v2
 
 
 def _default_device() -> torch.device:
@@ -131,14 +134,19 @@ class BatchCompressor:
 class BatchDecompressor:
     """Decompress many independent buffers; failed items yield None.
 
-    use_device=True decodes the raw-DEFLATE payloads with the two-pass
-    decoder on `device` (default: cuda when available), at most 1 MiB
-    per stream in and out. resolve="device" keeps LZ resolution on the
-    device, so only decoded bytes cross to the host; "host" resolves on
-    the host pool. An item that is over the caps, that pass 1 does not
-    finish (malformed), whose resolution fails, that exceeds its
-    max_out, or whose container check fails, is decoded by the host
-    decoder instead; `fallbacks` counts these by cause."""
+    use_device=True decodes the raw-DEFLATE payloads on `device`
+    (default: cuda when available). A batch of fewer than SMALL_BATCH
+    items goes to the small-batch decoder (64 KiB per stream in, ~64 KiB
+    out); a larger one to the two-pass decoder (1 MiB per stream in and
+    out), where resolve="device" keeps LZ resolution on the device, so
+    only decoded bytes cross to the host, and "host" resolves on the
+    host pool. An item that is over the input cap ("in_cap"), that the
+    decoder finds bad ("v2" or "pass1") or stops at its output cap
+    ("out_cap", or "max_out" when the item's own max_out is within that
+    cap), whose resolution fails ("resolve"), that exceeds its max_out
+    ("max_out"), or whose container check fails ("container",
+    "checksum"), is decoded by the host decoder instead; `fallbacks`
+    counts these by cause."""
 
     def __init__(self, format: str = "deflate", use_device: bool = False,
                  resolve: str = "host", device=None) -> None:
@@ -175,6 +183,8 @@ class BatchDecompressor:
         return data[start:len(data) - 8], verify_gzip
 
     def _decompress_batch_device(self, jobs) -> list:
+        small = len(jobs) < SMALL_BATCH
+        in_cap = inflate_v2.IN_CAP if small else MAX_STREAM
         out: list = [None] * len(jobs)
         causes: dict[int, str] = {}
         idx, payloads, verifies = [], [], []
@@ -184,47 +194,70 @@ class BatchDecompressor:
             except DeflateError:
                 causes[i] = "container"
                 continue
-            if len(payload) > MAX_STREAM:
+            if len(payload) > in_cap:
                 causes[i] = "in_cap"
                 continue
             idx.append(i)
             payloads.append(payload)
             verifies.append(verify)
         if idx:
-            out_cap = inflate_tokens.cap_bucket(
-                [min(jobs[i][1], MAX_STREAM) for i in idx])
-            tokens, stats, _ = inflate_tokens.decode_streams(
-                payloads, out_cap, MAX_STREAM, self.device)
-            decoded = inflate_tokens.resolve_streams(
-                tokens, stats, out_cap, self.resolve)
-            for k, i in enumerate(idx):
-                dec = decoded[k]
-                if stats[k, 0] != inflate_tokens.DONE:
-                    causes[i] = "pass1"
-                    if stats[k, 1] > out_cap - MAX_MATCH:
-                        # stopped at the batch's out_cap: over the device
-                        # cap if the item asked for more, else over its
-                        # own max_out
-                        causes[i] = ("out_cap" if jobs[i][1] > out_cap
-                                     else "max_out")
-                elif dec is None or len(dec) != stats[k, 1]:
-                    causes[i] = "resolve"
-                elif len(dec) > jobs[i][1]:
+            decode = self._decode_small if small else self._decode_two_pass
+            for k, dec in enumerate(decode(jobs, idx, payloads, causes)):
+                i = idx[k]
+                if i in causes:
+                    continue
+                if len(dec) > jobs[i][1]:
                     causes[i] = "max_out"
-                else:
-                    try:
-                        verifies[k](dec)
-                    except DeflateError:
-                        causes[i] = "checksum"
-                        continue
-                    out[i] = dec
+                    continue
+                try:
+                    verifies[k](dec)
+                except DeflateError:
+                    causes[i] = "checksum"
+                    continue
+                out[i] = dec
         for i, cause in sorted(causes.items()):
             self.fallbacks[cause] += 1
             out[i] = self._decompress_item(jobs[i])
         return out
 
+    def _decode_small(self, jobs, idx, payloads, causes) -> list:
+        """The small-batch decoder: one inflate_v2 launch. Returns the
+        decoded bytes per payload; sets causes[i] where there are none."""
+        words = inflate_v2.decode_words(payloads, self.device)
+        decoded = []
+        for k, i in enumerate(idx):
+            dec = inflate_v2.row_bytes(words[k])
+            if dec is None:
+                causes[i] = "v2"
+                if words[k, inflate_v2.OUT_WORDS - 2] & inflate_v2.BAD_OUT_CAP:
+                    causes[i] = ("out_cap" if jobs[i][1] > inflate_v2.OUT_CAP
+                                 else "max_out")
+            decoded.append(dec)
+        return decoded
+
+    def _decode_two_pass(self, jobs, idx, payloads, causes) -> list:
+        """The two-pass decoder: pass 1 and resolution for the batch.
+        Returns the decoded bytes per payload; sets causes[i] where there
+        are none."""
+        out_cap = inflate_tokens.cap_bucket(
+            [min(jobs[i][1], MAX_STREAM) for i in idx])
+        tokens, stats, _ = inflate_tokens.decode_streams(
+            payloads, out_cap, MAX_STREAM, self.device)
+        decoded = inflate_tokens.resolve_streams(
+            tokens, stats, out_cap, self.resolve)
+        for k, i in enumerate(idx):
+            if stats[k, 0] != inflate_tokens.DONE:
+                causes[i] = "pass1"
+                if stats[k, 1] > out_cap - MAX_MATCH:
+                    # stopped at the batch's out_cap: over the device cap
+                    # if the item asked for more, else over its own max_out
+                    causes[i] = "out_cap" if jobs[i][1] > out_cap else "max_out"
+            elif decoded[k] is None or len(decoded[k]) != stats[k, 1]:
+                causes[i] = "resolve"
+        return decoded
+
     def _decompress_one(self, data: bytes, max_out: int) -> bytes:
-        from libdeflate_rsx_tpu.api import Decompressor
+        from .api import Decompressor
         d = Decompressor()
         if self.format == "deflate":
             return d.decompress_deflate(data, max_out)

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from libdeflate_rsx_tpu.ops.tokens import KIND_SHIFT
+from .ops.tokens import KIND_SHIFT
 
 TOK_CHUNK = 256      # steps per token flush in the JAX pass-1 kernel
 

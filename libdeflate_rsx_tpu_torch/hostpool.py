@@ -1,8 +1,9 @@
 """Host thread pool for the port's per-item host work.
 
-A copy of `pmap` from `libdeflate_rsx_tpu/parallel/hostpool.py`. That
-module is JAX-free, but importing it runs `libdeflate_rsx_tpu.parallel`'s
-`__init__`, which imports the JAX sharding layer.
+A copy of `pmap` from `libdeflate_rsx_tpu/parallel/hostpool.py` (the
+port imports nothing of the JAX package). The host engine's chunked
+compress over 256 KiB, the stream encoder's flushes and the batch
+classes' host items run on it.
 """
 
 from __future__ import annotations

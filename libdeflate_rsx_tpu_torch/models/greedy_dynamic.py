@@ -85,15 +85,13 @@ def assemble_dynamic(device_out, headers, hdr_bits: np.ndarray,
     bits_r = nxt - row_bit0
     extent = ((row_bit0 & 7) + bits_r + 7) // 8
     extent = np.minimum(extent, rows.shape[2])
-
-    from libdeflate_rsx_tpu.native import assemble_rows_native
-    if not assemble_rows_native(out, rows, byte_off, extent):
-        b, r, w = rows.shape
-        kk = np.arange(w)[None, None, :]
-        gidx = np.minimum(byte_off[:, :, None] + kk, out_cap - 1)
-        use = kk < extent[:, :, None]
-        bidx = np.broadcast_to(np.arange(b)[:, None, None], gidx.shape)
-        np.bitwise_or.at(out, (bidx[use], gidx[use]), rows[use])
+    # the JAX package's native row assembly is absent: numpy places rows
+    b, r, w = rows.shape
+    kk = np.arange(w)[None, None, :]
+    gidx = np.minimum(byte_off[:, :, None] + kk, out_cap - 1)
+    use = kk < extent[:, :, None]
+    bidx = np.broadcast_to(np.arange(b)[:, None, None], gidx.shape)
+    np.bitwise_or.at(out, (bidx[use], gidx[use]), rows[use])
 
     parts: list[bytes] = []
     for i in range(num):

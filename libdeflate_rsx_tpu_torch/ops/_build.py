@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` has a plain C entry point. It is compiled with nvcc
 for sm_90a into a shared library under `build/kernels/` at the root of
 the checkout (listed in .gitignore), named by a hash of its source and
 flags so that an edited source is rebuilt, and loaded with ctypes. The
-build happens at first use, never at import.
+build happens at first use, never at import: the first `load` compiles
+every missing kernel of `csrc/`, one nvcc each, all started together.
 """
 
 from __future__ import annotations
@@ -52,27 +53,45 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
+def _build_missing() -> None:
+    """Compile each missing library of `csrc/`: one nvcc per source, all
+    started together. The compiler's resource report (-Xptxas -v) goes
+    to `<library>.log`. Call with _lock held."""
+    jobs = []
+    names = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+    for name in names:
+        so = library_path(name)
+        if os.path.exists(so):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, name + ".cu")]
+        jobs.append((name, so, tmp, time.perf_counter(),
+                     subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, so, tmp, t0, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{err}")
+            continue
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        with open(so + ".log", "w") as f:
+            f.write(out + err)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """Compile `csrc/<name>.cu` if its library is missing, and load it.
-    The compiler's resource report (-Xptxas -v) goes to `<library>.log`."""
+    """Load the library of `csrc/<name>.cu`, compiling the missing ones
+    first."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        so = library_path(name)
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC, name + ".cu")]
-            t0 = time.perf_counter()
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}:\n{r.stderr}")
-            BUILD_SECONDS[name] = time.perf_counter() - t0
-            with open(so + ".log", "w") as f:
-                f.write(r.stdout + r.stderr)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        _build_missing()
+        lib = ctypes.CDLL(library_path(name))
         _libs[name] = lib
         return lib

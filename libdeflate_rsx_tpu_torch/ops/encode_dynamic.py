@@ -8,8 +8,8 @@ flow per batch of blocks:
                     run extension, lazy demotion, greedy selection and
                     per-block litlen/offset histograms (device);
   build_tables_host histograms -> per-block canonical code tables and
-                    serialized headers (host; native C builder when it
-                    loads, the package-merge Python builder otherwise);
+                    serialized headers (host, the package-merge Python
+                    builder);
   emit_pack         tokens coded through the tables and bit-packed into
                     row buffers (device).
 
@@ -25,8 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libdeflate_rsx_tpu.common import WINDOW_SIZE
-
+from ..common import WINDOW_SIZE
 from .encode_v2 import MIN_MATCH, extend_runs, pack_rows, select_tokens
 from .static_codes import length_sym_fields, offset_sym_fields
 
@@ -289,11 +288,11 @@ def emit_pack(data_padded: torch.Tensor, ml: torch.Tensor,
 
 def build_tables_host(ll_hist, of_hist, finals: np.ndarray):
     """Histograms -> (ll_tabs (B, 288) u32, of_tabs (B, 30) u32, headers
-    list[bytes], hdr_bits (B,) int32), as numpy. Native C builder
-    (dyn_tables_c) when it loads, else the Python package-merge builder,
-    per block, as in the JAX package. Accepts numpy arrays or tensors."""
-    from libdeflate_rsx_tpu.native import dyn_tables_native
-
+    list[bytes], hdr_bits (B,) int32), as numpy, per block with the
+    Python package-merge builder. The port has no native table builder:
+    the JAX package's C builder (dyn_tables_c) gives other tables than
+    this one, and the JAX package runs this one while its C codec does
+    not build. Accepts numpy arrays or tensors."""
     ll_hist, of_hist = (
         (x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x))
         .astype(np.uint32) for x in (ll_hist, of_hist))
@@ -303,26 +302,22 @@ def build_tables_host(ll_hist, of_hist, finals: np.ndarray):
     headers: list[bytes] = []
     hdr_bits = np.zeros(b, np.int32)
     for i in range(b):
-        res = dyn_tables_native(ll_hist[i], of_hist[i], bool(finals[i]))
-        if res is None:
-            res = _build_tables_py(ll_hist[i], of_hist[i], bool(finals[i]))
-        ll_tabs[i], of_tabs[i], hdr, hdr_bits[i] = res
+        ll_tabs[i], of_tabs[i], hdr, hdr_bits[i] = _build_tables_py(
+            ll_hist[i], of_hist[i], bool(finals[i]))
         headers.append(hdr)
     return ll_tabs, of_tabs, headers, hdr_bits
 
 
 def _build_tables_py(ll_hist: np.ndarray, of_hist: np.ndarray,
                      final: bool):
-    """Pure-Python table builder mirroring native dyn_tables_c."""
-    from libdeflate_rsx_tpu.models.portable.deflate import (
+    """Pure-Python table builder (the JAX package's fallback for its
+    native dyn_tables_c)."""
+    from ..models.portable.deflate import (
         TokenStream,
         _dynamic_header_tokens,
         _ensure_complete,
     )
-    from libdeflate_rsx_tpu.models.portable.huffman import (
-        canonical_codes,
-        make_huffman_code,
-    )
+    from ..models.portable.huffman import canonical_codes, make_huffman_code
 
     llf = ll_hist.astype(np.int64).copy()
     llf[256] += 1

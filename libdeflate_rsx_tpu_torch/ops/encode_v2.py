@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from libdeflate_rsx_tpu.common import MAX_MATCH_LEN
+from ..common import MAX_MATCH_LEN
 
 ROW = 32                  # cover/pack row width (bytes)
 ROW_OUT = 48              # row-local output buffer (bytes)

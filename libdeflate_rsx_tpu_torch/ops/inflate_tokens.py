@@ -35,9 +35,8 @@ import ctypes
 import numpy as np
 import torch
 
-from libdeflate_rsx_tpu.ops.tokens import KIND_LIT, KIND_MATCH, KIND_SHIFT
-
 from . import _build
+from .tokens import KIND_LIT, KIND_MATCH, KIND_SHIFT, resolve_tokens_np
 
 # stream modes (active = mode < DONE)
 BLKSTART, PRELEN, LENS, AWAITBUILD, BODY, STORED, DONE, BAD = range(8)
@@ -487,22 +486,11 @@ def decode_streams(streams: list[bytes], out_cap: int = OUT_CAP,
     return tokens, stats.cpu().numpy(), ok
 
 
-def _resolve_one(job):
-    from libdeflate_rsx_tpu.native.host import native_resolve_tokens
-    from libdeflate_rsx_tpu.ops.tokens import resolve_tokens_np
-
-    col, outlen = job
-    try:
-        return native_resolve_tokens(col, outlen)
-    except LookupError:
-        return resolve_tokens_np(col, outlen)
-
-
 def resolve_streams(tokens, stats, out_cap: int, where: str = "device"):
     """Pass 2 for every stream of a pass-1 batch, whatever its mode:
     list[bytes | None], None where resolution fails. where="device"
     resolves on the tokens' device (only bytes cross to the host);
-    "host" with the native resolver (numpy fallback) on the host pool."""
+    "host" with the numpy resolver on the host pool."""
     from ..hostpool import pmap
     from .resolve import resolve_batch
 
@@ -516,7 +504,7 @@ def resolve_streams(tokens, stats, out_cap: int, where: str = "device"):
         return [out_h[i, :len_h[i]].tobytes() if ok_h[i] else None
                 for i in range(n)]
     toks = tokens[:, :ntok].cpu().numpy()
-    return pmap(_resolve_one,
+    return pmap(lambda job: resolve_tokens_np(*job),
                 [(toks[i, :stats[i, 3]], int(stats[i, 1])) for i in range(n)])
 
 

@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from libdeflate_rsx_tpu.ops.tokens import KIND_SHIFT
+from .tokens import KIND_SHIFT
 
 __all__ = ["resolve_batch"]
 

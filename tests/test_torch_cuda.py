@@ -1,6 +1,6 @@
-"""The port on a CUDA card: the pass-1 kernel against its plain PyTorch
-version on the card, and the slice through the kernel. Every test here
-needs a card and skips without one.
+"""The port on a CUDA card: the pass-1, inflate_v2 and inflate_static
+kernels against their plain PyTorch versions on the card, and the slice
+through the kernels. Every test here needs a card and skips without one.
 
 Run on a machine with a card (the suite's conftest.py imports jax, which
 such a machine need not have): python -m pytest --noconftest
@@ -78,9 +78,68 @@ def test_slice_on_card_equals_slice_on_cpu(card):
     cpu = BatchCompressor(level=6, use_device=True,
                           device="cpu").compress_batch(datas)
     assert gpu == cpu
+    # 4 items take the small-batch decoder (the 70000-byte item passes its
+    # output cap), 8 the two-pass decoder
+    inputs = gpu + [b"\xff\x07garbage"]
+    caps = [len(d) for d in datas] + [100]
+    bd = BatchDecompressor(use_device=True, device=card)
+    assert bd.decompress_batch(inputs, caps) == datas + [None]
+    assert dict(bd.fallbacks) == {"out_cap": 1, "v2": 1}
     for resolve in ("device", "host"):
         bd = BatchDecompressor(use_device=True, resolve=resolve, device=card)
-        got = bd.decompress_batch(gpu + [b"\xff\x07garbage"],
-                                  [len(d) for d in datas] + [100])
-        assert got == datas + [None]
-        assert dict(bd.fallbacks) == {"pass1": 1}
+        got = bd.decompress_batch(inputs * 2, caps * 2)
+        assert got == (datas + [None]) * 2
+        assert dict(bd.fallbacks) == {"pass1": 2}
+
+
+def _stream_cases():
+    """Streams for the two stream kernels: every block type, malformed,
+    bit-flipped, and output past the 64 KiB caps."""
+    def fixed(d):
+        c = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
+        return c.compress(d) + c.flush()
+
+    d = make_corpus("text", 60000, seed=3)
+    return _cases() + [fixed(d), _z(d, 0)[:30000], _z(d, 9), _z(bytes(70000)),
+                       fixed(bytes(66100)), b""]
+
+
+@pytest.mark.parametrize("name", ["inflate_v2", "inflate_static"])
+def test_stream_kernel_equals_plain_on_card(card, name):
+    """Every output word equal (bytes, flags, count), and the launch
+    counted."""
+    import importlib
+
+    from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
+
+    mod = importlib.import_module("libdeflate_rsx_tpu_torch.ops." + name)
+    kernel, plain = getattr(mod, name), getattr(mod, name + "_plain")
+    lens, words = v2.pack(_stream_cases(), card)
+    before = mod.LAUNCHES
+    out_k = kernel(lens, words)
+    assert mod.LAUNCHES == before + 1
+    out_p = plain(lens, words)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_p)
+    empty = kernel(*v2.pack([], card))
+    assert empty.shape == (0, v2.OUT_WORDS) and mod.LAUNCHES == before + 1
+
+
+def test_small_batch_goes_through_inflate_v2_on_card(card):
+    from libdeflate_rsx_tpu_torch import BatchDecompressor, Compressor
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+    from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
+    from libdeflate_rsx_tpu_torch.ops import inflate_device_static
+
+    items = [make_corpus(k, 20000, seed=i)
+             for i, k in enumerate(("text", "pattern", "random"))]
+    for fmt in ("deflate", "zlib", "gzip"):
+        comp = [getattr(Compressor(6), "compress_" + fmt)(d) for d in items]
+        v2_before, p1_before = v2.LAUNCHES, it.LAUNCHES
+        bd = BatchDecompressor(format=fmt, use_device=True, device=card)
+        assert bd.decompress_batch(comp, [len(d) for d in items]) == items
+        assert not bd.fallbacks
+        assert v2.LAUNCHES == v2_before + 1 and it.LAUNCHES == p1_before
+    c = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
+    fixed = c.compress(items[0]) + c.flush()
+    assert inflate_device_static([fixed, _z(items[0])], card) == [items[0], None]

@@ -1,4 +1,5 @@
-"""The PyTorch port imports torch and never jax, and its pass-1 wrapper
+"""The PyTorch port imports torch and never jax, nor anything of the JAX
+package: it keeps its own copy of the host layer. Its pass-1 wrapper
 keeps to its device rules."""
 
 import os
@@ -14,6 +15,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "libdeflate_rsx_tpu_torch"
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
 _JAX_IMPORT = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+# the JAX package by name (libdeflate_rsx_tpu_torch does not match: \b)
+_REF_IMPORT = re.compile(r"^\s*(import|from)\s+libdeflate_rsx_tpu\b", re.M)
 
 torch.set_num_threads(2)
 
@@ -23,13 +26,31 @@ def test_import_leaves_jax_out():
         "libdeflate_rsx_tpu_torch." + p[len("libdeflate_rsx_tpu_torch/"):-3]
         .replace("/", ".").replace(".__init__", "")
         for p in SOURCES if not p.endswith("torch/__init__.py")]
-    code = ("import importlib, sys\n"
+    # every module, then the host paths: a compress over 256 KiB (the
+    # chunked path on the host pool), a decompress, the stream classes
+    # and a batch decode on the host
+    code = ("import importlib, io, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "assert 'jax' not in sys.modules, sorted(\n"
-            "    m for m in sys.modules if m.startswith('jax'))\n"
+            "import libdeflate_rsx_tpu_torch as t\n"
+            "data = bytes(range(251)) * 1224 + b'tail' * 9000\n"
+            "assert len(data) > 256 << 10\n"
+            "c = t.Compressor(6).compress_zlib(data)\n"
+            "assert t.Decompressor().decompress_zlib(c, len(data)) == data\n"
+            "buf = io.BytesIO()\n"
+            "enc = t.DeflateEncoder(buf, 1, buffer_size=1 << 16)\n"
+            "enc.write(data[:100000]); enc.finish()\n"
+            "out = t.DeflateDecoder(io.BytesIO(buf.getvalue())).read()\n"
+            "assert out == data[:100000]\n"
+            "bd = t.BatchDecompressor('zlib', use_device=True, device='cpu')\n"
+            "assert bd.decompress_batch([c, b'x'], [len(data), 9]) == \\\n"
+            "    [data, None]\n"
+            "assert dict(bd.fallbacks) == {'out_cap': 1, 'container': 1}\n"
+            "bad = sorted(m for m in sys.modules if m.startswith('jax')\n"
+            "             or m.split('.')[0] == 'libdeflate_rsx_tpu')\n"
+            "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
-    env = dict(os.environ)
+    env = dict(os.environ, LIBDEFLATE_RSX_THREADS="2")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
@@ -41,6 +62,12 @@ def test_import_leaves_jax_out():
 def test_no_jax_import_in_sources(path):
     text = (ROOT / path).read_text()
     assert not _JAX_IMPORT.search(text), path
+
+
+@pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py"])
+def test_no_jax_package_import_in_sources(path):
+    text = (ROOT / path).read_text()
+    assert not _REF_IMPORT.search(text), path
 
 
 def test_chip_smoke_drives_only_the_port():

@@ -2,7 +2,9 @@
 tier and BatchDecompressor through the two-pass decoder, on
 device="cpu" (the plain pass 1, no kernel launch). The compressed bytes
 must equal the JAX model's payload with the same framing; decoding must
-be byte-exact, with every host fallback counted by cause."""
+be byte-exact, with every host fallback counted by cause. The decode
+batches here hold at least SMALL_BATCH items, so that they take the
+two-pass decoder (smaller ones: tests/test_torch_inflate_v2.py)."""
 
 import gzip
 import zlib
@@ -13,6 +15,7 @@ import torch
 from libdeflate_rsx_tpu import batch as jbatch
 from libdeflate_rsx_tpu.models.greedy_dynamic import deflate_device_l6_many
 from libdeflate_rsx_tpu_torch import BatchCompressor, BatchDecompressor
+from libdeflate_rsx_tpu_torch.batch import SMALL_BATCH
 from libdeflate_rsx_tpu_torch.ops import inflate_tokens
 from tests.conftest import make_corpus
 
@@ -47,8 +50,8 @@ def test_compress_decompress_slice(fmt, jax_payloads):
 
     bd = BatchDecompressor(format=fmt, use_device=True, resolve="device",
                            device="cpu")
-    got = bd.decompress_batch(out, [len(d) for d in DATAS])
-    assert got == DATAS
+    got = bd.decompress_batch(out * 2, [len(d) for d in DATAS] * 2)
+    assert got == DATAS * 2
     assert not bd.fallbacks
     assert inflate_tokens.LAUNCHES == launches     # CPU: plain version
 
@@ -57,8 +60,10 @@ def test_decompress_fallbacks_counted_by_cause():
     comp = BatchCompressor(level=6, use_device=True,
                            device="cpu").compress_batch(DATAS[:2])
     big = zlib.compress(bytes(1_100_000), 0)[2:-4]        # > 1 MiB payload
-    inputs = comp + [b"\xff\x07garbage", comp[1], big]
-    caps = [len(DATAS[0]), len(DATAS[1]), 100, 1000, 1_100_000]
+    pad = [comp[1]] * (SMALL_BATCH - 5)
+    inputs = comp + [b"\xff\x07garbage", comp[1], big] + pad
+    caps = [len(DATAS[0]), len(DATAS[1]), 100, 1000, 1_100_000] \
+        + [len(DATAS[1])] * len(pad)
     for resolve in ("device", "host"):
         bd = BatchDecompressor(use_device=True, resolve=resolve,
                                device="cpu")
@@ -67,6 +72,7 @@ def test_decompress_fallbacks_counted_by_cause():
         assert got[2] is None                   # garbage: host fails too
         assert got[3] is None                   # over its max_out
         assert got[4] == bytes(1_100_000)       # over the in-cap: host
+        assert got[5:] == DATAS[1:2] * len(pad)
         assert dict(bd.fallbacks) == {"pass1": 1, "max_out": 1,
                                       "in_cap": 1}
 
@@ -76,15 +82,20 @@ def test_out_cap_fallbacks_counted_apart():
     counted as malformed: "out_cap" when its max_out is over the device
     cap (the host decodes it), "max_out" when it is not (nothing does)."""
     big = bytes((1 << 20) + 4096)
+    pad = [b"x"] * (SMALL_BATCH - 2)
     bd = BatchDecompressor(use_device=True, resolve="device", device="cpu")
-    got = bd.decompress_batch([zlib.compress(big, 6)[2:-4], b"\xff\x07"],
-                              [len(big), 100])
-    assert got == [big, None]
+    got = bd.decompress_batch(
+        [zlib.compress(big, 6)[2:-4], b"\xff\x07"]
+        + [zlib.compress(p, 6)[2:-4] for p in pad],
+        [len(big), 100] + [1] * len(pad))
+    assert got == [big, None] + pad
     assert dict(bd.fallbacks) == {"out_cap": 1, "pass1": 1}
+    pad = [b"x"] * (SMALL_BATCH - 1)
     bd = BatchDecompressor(use_device=True, resolve="device", device="cpu")
-    got = bd.decompress_batch([zlib.compress(bytes(70000), 6)[2:-4]],
-                              [65536])
-    assert got == [None]
+    got = bd.decompress_batch(
+        [zlib.compress(bytes(70000), 6)[2:-4]]
+        + [zlib.compress(p, 6)[2:-4] for p in pad], [65536] + [1] * len(pad))
+    assert got == [None] + pad
     assert dict(bd.fallbacks) == {"max_out": 1}
 
 
