@@ -8,38 +8,46 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
 2. build: the three CUDA kernels (pass 1, inflate_v2, inflate_static),
    from csrc/ with one nvcc each, all started together (build/kernels/);
-3. pass-1 kernel against its plain PyTorch version, both on the card,
-   at the 64 KiB out_cap: zlib streams of every test-corpus kind and
-   level, multi-block, garbage, truncated and bit-flipped streams, and
-   64 KiB slices of the Silesia-like corpus; tokens and stats equal;
-   then again on the main path's 256 zlib-6 slices, which give the
-   kernel's timed record and its bound;
+3. pass 1 (the segment route's kernels) against its plain PyTorch
+   version, both on the card, at the 64 KiB out_cap: zlib streams of
+   every test-corpus kind and level, multi-block, garbage, truncated and
+   bit-flipped streams, 16 KiB slices of the Silesia-like corpus, and
+   streams with sync points (Z_SYNC_FLUSH and Z_FULL_FLUSH every few KiB,
+   stored data holding 00 00 FF FF, truncated and bit-flipped ones);
+   tokens and stats equal; then again on the main path's 256 zlib-6
+   slices, which give the kernel's timed record and its bound;
 4. compress: BatchCompressor(level=6, use_device=True) over the corpus
    in 1 MiB items, every output checked with zlib;
 5. decompress: BatchDecompressor(use_device=True, resolve="device") on
    the compressed items and on 256 zlib-6 streams of 64 KiB slices,
    byte-exact with no host fallback;
 6. the pass-1 kernel's launch count over phases 4-5 must be positive;
-7. pass-1 kernel against plain version again at the 1 MiB out_cap of
+   the segment route's counts on the L6 items must show more than 17
+   segments and no serial rerun;
+7. pass 1 alone on the 17 L6 items and on the 256 slices, timed by
+   CUDA events with its byte bound and peak memory: the segment route
+   and the serial route (the same kernels with sync stops off, one
+   segment per stream), in turns, equal;
+8. pass-1 kernel against plain version again at the 1 MiB out_cap of
    the L6 items (after the count is read), on a prefix of an L6 item of
-   phase 4, a whole small L6 item, streams at the cap, and the small
-   and bit-flipped cases of phase 3;
-8. inflate_v2 against its plain version at its 64 KiB caps: corpus
+   phase 4, a whole small L6 item, streams at the cap, the sync-point
+   streams, and the small and bit-flipped cases of phase 3;
+9. inflate_v2 against its plain version at its 64 KiB caps: corpus
    slices at zlib levels 1, 6 and 9, stored and Z_FIXED slices,
    bit-flipped streams, the small cases, a stream over the input cap
    and one whose output passes the output cap; every output word equal;
    then again on the small-batch path's 7 zlib-6 slices, which give the
    kernel's timed record and its bound; the kernel alone on 256 zlib-6
    slices, and beside pass 1 on the 7 slices;
-9. the small-batch path: BatchDecompressor(use_device=True) in the
+10. the small-batch path: BatchDecompressor(use_device=True) in the
    three formats on batches of 1 and 7 zlib-6 slices, byte-exact with
    no host fallback; inflate_v2's launch count over it must be positive
    and pass 1's zero;
-10. inflate_static against its plain version: stored and Z_FIXED
+11. inflate_static against its plain version: stored and Z_FIXED
    slices, dynamic, truncated and bit-flipped streams; every output word
    equal; then again on the static path's 128 Z_FIXED slices, which give
    the kernel's timed record and its bound;
-11. the static path: inflate_device_static on 128 Z_FIXED slices,
+12. the static path: inflate_device_static on 128 Z_FIXED slices,
    byte-exact; inflate_static's launch count over it must be positive.
 
 Each kernel's record (ms, plain_ms, bound_ms) is taken on its path's
@@ -69,6 +77,9 @@ ITEM = 1 << 20          # compress item size (bytes)
 SLICE = 65536           # decode-set slice size (bytes)
 N_SLICES = 256          # zlib-6 decode set
 N_CHECK_SLICES = 32     # corpus slices in the kernel-vs-plain set
+CHECK_SLICE = 16384     # corpus bytes per stream of the mixed check sets:
+                        # their plain runs last as long as their longest
+                        # stream; each path's record takes full slices
 N_MUTATED = 96          # bit-flipped streams in the kernel-vs-plain set
 L6_PREFIX = 28 << 10    # bytes of an L6 item in the 1 MiB kernel-vs-plain set
 MUTATED = object()      # marks a case held only to the plain version
@@ -149,6 +160,44 @@ def small_cases():
     return cases + [(m, MUTATED) for m in mutated_streams(N_MUTATED)]
 
 
+def sync_cases(data: bytes):
+    """(stream, original, or None for malformed, or MUTATED) with sync
+    points: corpus slices at zlib-6 with a Z_SYNC_FLUSH every 2 KiB
+    (matches reach back across them) or a Z_FULL_FLUSH every 4 KiB,
+    stored and zlib-6 slices holding 00 00 FF FF every 509 bytes (false
+    candidates), a stream cut in its third segment, and bit-flipped
+    copies."""
+    def flushed(d, every, level=6, mode=zlib.Z_SYNC_FLUSH):
+        co = zlib.compressobj(level, zlib.DEFLATED, -15)
+        out = b""
+        for k in range(0, len(d), every):
+            out += co.compress(d[k:k + every])
+            if k + every < len(d):
+                out += co.flush(mode)
+        return out + co.flush()
+
+    cases = []
+    for i in range(3):
+        c = data[(60 + i) * SLICE:(60 + i) * SLICE + CHECK_SLICE]
+        cases.append((flushed(c, 2048), c))
+    c = data[63 * SLICE:63 * SLICE + CHECK_SLICE]
+    cases.append((flushed(c, 4096, mode=zlib.Z_FULL_FLUSH), c))
+    c = data[64 * SLICE:64 * SLICE + CHECK_SLICE]
+    marked = b"".join(c[k:k + 505] + b"\x00\x00\xff\xff"
+                      for k in range(0, len(c), 505))
+    cases += [(flushed(marked, 4096, level=0), marked),
+              (flushed(marked, 4096), marked)]
+    cases.append((cases[0][0][:len(cases[0][0]) // 3], None))
+    r = random.Random(13)
+    for k in range(8):
+        s = bytearray(cases[k % 6][0])
+        for _ in range(1 + k % 3):
+            bit = r.randrange(8 * len(s))
+            s[bit >> 3] ^= 1 << (bit & 7)
+        cases.append((bytes(s), MUTATED))
+    return cases
+
+
 def time_cuda(fn, reps: int) -> float:
     """Mean milliseconds of fn() over reps runs, by CUDA events."""
     import torch
@@ -211,34 +260,91 @@ def phase_kernel(data: bytes):
     returns the kernel's JSON record, from the latter."""
     from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
 
-    cases = small_cases()
+    sync = sync_cases(data)
+    cases = small_cases() + sync
     for i in range(N_CHECK_SLICES):
-        c = data[i * SLICE:(i + 1) * SLICE]
+        c = data[i * SLICE:i * SLICE + CHECK_SLICE]
         cases.append((raw_z(c), c))
+    counts = route_counts()
     err, ms, plain_ms, stats = kernel_vs_plain(cases, SLICE, "64 KiB")
-    n_mut = int((stats[-N_CHECK_SLICES - N_MUTATED:-N_CHECK_SLICES, 0]
-                 == it.DONE).sum())
+    n_mut = int((stats[-N_CHECK_SLICES - len(sync) - N_MUTATED:
+                       -N_CHECK_SLICES - len(sync), 0] == it.DONE).sum())
     log(f"kernel vs plain, out_cap 64 KiB: equal on {len(cases)} streams "
-        f"({N_CHECK_SLICES} corpus slices of 64 KiB at zlib-6, "
+        f"({N_CHECK_SLICES} corpus slices of {CHECK_SLICE} B at zlib-6, "
+        f"{len(sync)} with sync points, "
         f"{N_MUTATED} bit-flipped streams of which {n_mut} DONE, "
-        f"{len(cases) - N_CHECK_SLICES - N_MUTATED} small cases), "
-        f"max abs err {err}")
+        f"{len(cases) - N_CHECK_SLICES - len(sync) - N_MUTATED} small "
+        f"cases), max abs err {err}; route counts over its first call: "
+        f"{route_counts(counts)}")
     log(f"  pass-1 kernel {ms:.3f} ms per launch (CUDA events, "
         f"{KERNEL_REPS} launches); plain version {plain_ms:.1f} ms "
         f"(host clock, one run), on that same reduced set")
     chunks = [data[i * SLICE:(i + 1) * SLICE] for i in range(N_SLICES)]
     path = [(raw_z(c), c) for c in chunks]
     err2, ms, plain_ms, stats = kernel_vs_plain(path, SLICE, "256 slices")
-    # bytes the kernel must move: each stream byte, offset and length read
-    # once; each token it writes and its stats row written once
-    nbytes = sum(len(z) + 12 for z, _ in path) \
-        + 4 * int(stats[:, 3].sum()) + 16 * len(path)
+    nbytes = pass1_bytes([z for z, _ in path], stats)
     log(f"kernel vs plain on the main path's {N_SLICES} zlib-6 slices: "
         f"equal, max abs err {err2}; pass-1 kernel {ms:.3f} ms per launch "
         f"(CUDA events, {KERNEL_REPS} launches); plain version "
         f"{plain_ms:.1f} ms (host clock, one run)")
     return record("inflate_tokens", "ops/pallas/inflate_tokens.py:315",
                   max(err, err2), ms, plain_ms, nbytes)
+
+
+def route_counts(since=None) -> dict:
+    """The segment route's counts (ops/inflate_tokens.py), or their
+    growth since an earlier reading."""
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+    now = {k: getattr(it, k) for k in ("SEGMENTS", "FALSE_CANDIDATES",
+                                        "CONFIRMED", "RERUNS")}
+    return now if since is None else {k: now[k] - since[k] for k in now}
+
+
+def pass1_bytes(streams, stats) -> int:
+    """Bytes pass 1 must move: each stream byte, offset and length read
+    once; each token and stats row written once."""
+    return sum(len(z) + 12 for z in streams) + 4 * int(stats[:, 3].sum()) \
+        + 16 * len(streams)
+
+
+def phase_pass1_routes(streams, out_cap: int, label: str):
+    """Pass 1 alone on one batch of the main path: the segment route and
+    the serial route (sync stops off), equal, timed by CUDA events in
+    turns (segment, serial, serial, segment), with the byte bound and
+    peak memory of the segment route."""
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+
+    args = it.pack_streams(streams, it.in_cap_bucket(streams), "cuda")[:3]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    counts = route_counts()
+    tok, st = it.pass1(*args, out_cap)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    counts = route_counts(counts)
+    routes = {"segment": {}, "serial": {"_sync_stops": False}}
+    tok2, st2 = it.pass1(*args, out_cap, _sync_stops=False)
+    assert torch.equal(tok, tok2) and torch.equal(st, st2), \
+        f"{label}: the serial route differs from the segment route"
+    del tok2, st2
+    order = ("segment", "serial", "serial", "segment")
+    t = {k: [] for k in routes}
+    for name in order:
+        t[name].append(time_cuda(lambda: it.pass1(*args, out_cap,
+                                                  **routes[name]),
+                                 KERNEL_REPS))
+    stats = st.cpu().numpy()
+    nbytes = pass1_bytes(streams, stats)
+    ntok = int(stats[:, 3].sum())
+    log(f"pass 1 on {label}: {ntok} tokens; segment route "
+        f"{t['segment'][0]:.3f} / {t['segment'][1]:.3f} ms, serial route "
+        f"{t['serial'][0]:.3f} / {t['serial'][1]:.3f} ms per call (CUDA "
+        f"events, {KERNEL_REPS} calls each, in turns); equal; "
+        f"{1e6 * sum(t['segment']) / 2 / max(ntok, 1):.2f} ns per token; "
+        f"bound {nbytes / HBM_BYTES_PER_MS:.6f} ms ({nbytes} bytes); peak "
+        f"memory of one call {peak / 2**20:.1f} MiB; route counts {counts}")
 
 
 def record(name, replaces, err, ms, plain_ms, nbytes):
@@ -270,16 +376,18 @@ def phase_kernel_items(data: bytes, comp: list[bytes]):
     two_c = BatchCompressor(level=6, use_device=True,
                             device="cuda").compress_batch([two])[0]
     zeros = bytes(ITEM)
+    sync = sync_cases(data)
     cases = [(comp[0][:L6_PREFIX], None), (two_c, two),
              (raw_z(zeros), zeros), (raw_z(zeros + b"\x00"), None)]
-    cases += small_cases()
+    cases += sync + small_cases()
     err, ms, plain_ms, stats = kernel_vs_plain(cases, ITEM, "1 MiB")
     assert stats[3, 0] == it.BAD and stats[3, 1] > ITEM - 258, stats[3]
     log(f"kernel vs plain, out_cap 1 MiB: equal on {len(cases)} streams "
         f"(a {L6_PREFIX}-byte prefix of L6 item 0 decoding {stats[0, 1]} "
         f"bytes in {stats[0, 3]} tokens, a two-block L6 item, 1 MiB of "
-        f"zeros and one byte more, {len(cases) - 4} small and bit-flipped "
-        f"cases), max abs err {err}")
+        f"zeros and one byte more, {len(sync)} with sync points, "
+        f"{len(cases) - 4 - len(sync)} small and bit-flipped cases), "
+        f"max abs err {err}")
     log(f"  pass-1 kernel {ms:.3f} ms per launch (CUDA events, "
         f"{KERNEL_REPS} launches); plain version {plain_ms:.1f} ms "
         f"(host clock, one run), on that same reduced set")
@@ -401,11 +509,11 @@ def phase_v2_kernel(data: bytes):
 
     cases = []
     for i in range(N_V2_SLICES):
-        c = data[i * SLICE:(i + 1) * SLICE]
+        c = data[i * SLICE:i * SLICE + CHECK_SLICE]
         z = raw_z(c, (1, 6, 9)[i % 3])
         cases.append((z, c if len(z) <= v2.IN_CAP else None))
     for i in range(2):
-        c = data[(40 + i) * SLICE:(40 + i) * SLICE + 60000]
+        c = data[(40 + i) * SLICE:(40 + i) * SLICE + CHECK_SLICE]
         cases += [(raw_z(c, 0), c), (fixed_z(c), c)]
     over_in = bytes(random.Random(1).randrange(256) for _ in range(SLICE))
     big = data[:SLICE + 8192]
@@ -416,8 +524,9 @@ def phase_v2_kernel(data: bytes):
     assert out[-len(stream_cases()) - 1, -2] & v2.BAD_OUT_CAP
     n_ok = int((out[:, -1] >= 0).sum())
     log(f"inflate_v2 vs plain: equal on {len(cases)} streams "
-        f"({N_V2_SLICES} corpus slices of 64 KiB at zlib 1/6/9, 2 stored and "
-        f"2 Z_FIXED 60000-byte slices, one over the input cap, one whose "
+        f"({N_V2_SLICES} corpus slices of {CHECK_SLICE} B at zlib 1/6/9, 2 "
+        f"stored and 2 Z_FIXED slices of as many bytes, one over the input "
+        f"cap, one whose "
         f"output passes the cap, {N_V2_MUTATED} bit-flipped, "
         f"{len(cases) - N_V2_SLICES - 6 - N_V2_MUTATED} small cases; "
         f"{n_ok} decode), max abs err {err}")
@@ -515,7 +624,7 @@ def phase_static_kernel(data: bytes):
 
     cases = []
     for i in range(8):
-        c = data[(50 + i) * SLICE:(50 + i) * SLICE + 60000]
+        c = data[(50 + i) * SLICE:(50 + i) * SLICE + CHECK_SLICE]
         z = raw_z(c)          # bad when its first block is dynamic
         cases += [(raw_z(c, 0), c), (fixed_z(c), c),
                   (z, None if (z[0] >> 1) & 3 == 2 else MUTATED)]
@@ -526,7 +635,7 @@ def phase_static_kernel(data: bytes):
     err, ms, plain_ms, out = stream_kernel_vs_plain(
         st, "inflate_static", cases, "inflate_static")
     log(f"inflate_static vs plain: equal on {len(cases)} streams (8 stored, "
-        f"8 Z_FIXED and 8 zlib-6 60000-byte slices, 2 truncated, "
+        f"8 Z_FIXED and 8 zlib-6 slices of {CHECK_SLICE} B, 2 truncated, "
         f"{N_V2_MUTATED} bit-flipped, {len(cases) - 26 - N_V2_MUTATED} small "
         f"cases; {int((out[:, -1] >= 0).sum())} decode), max abs err {err}")
     log(f"  inflate_static kernel {ms:.3f} ms per launch (CUDA events, "
@@ -571,15 +680,25 @@ def main() -> int:
 
     it.LAUNCHES = 0                       # the main path starts here
     items, comp = phase_compress(data)
+    counts = route_counts()
     phase_decompress("L6 items", comp, items, [ITEM] * len(comp))
+    counts = route_counts(counts)
     chunks = [data[i * SLICE:(i + 1) * SLICE] for i in range(N_SLICES)]
-    phase_decompress("zlib-6 slices", [raw_z(c) for c in chunks], chunks,
-                     [SLICE] * N_SLICES)
+    slices = [raw_z(c) for c in chunks]
+    counts_sl = route_counts()
+    phase_decompress("zlib-6 slices", slices, chunks, [SLICE] * N_SLICES)
+    counts_sl = route_counts(counts_sl)
     rec["launches"] = it.LAUNCHES
     assert rec["launches"] > 0, "the main path never launched pass 1"
     log(f"pass-1 kernel launches on the main path: {rec['launches']}")
+    log(f"segment route on the {len(comp)} L6 items: {counts}; on the "
+        f"{N_SLICES} slices: {counts_sl}")
+    assert counts["SEGMENTS"] > len(comp) and counts["RERUNS"] == 0, counts
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
+    phase_pass1_routes(comp, ITEM, f"the {len(comp)} L6 items (out_cap 1 MiB)")
+    phase_pass1_routes(slices, SLICE,
+                       f"the {N_SLICES} zlib-6 slices (out_cap 64 KiB)")
     rec["max_abs_err"] = max(rec["max_abs_err"],
                              phase_kernel_items(data, comp))
 

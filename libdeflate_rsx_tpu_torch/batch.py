@@ -39,7 +39,9 @@ SMALL_BATCH = 8          # device batches below this go to inflate_v2
 
 
 def _default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card: the plain versions run on the CPU only when the caller
+    passes device="cpu"."""
+    return torch.device("cuda")
 
 
 class BatchCompressor:
@@ -49,7 +51,7 @@ class BatchCompressor:
     path when a CUDA device is present, the level has a device tier and
     the tier's output stays within RATIO_SLACK of the host engine's on a
     sample; False forces the host engine. device: where the device tier
-    runs (default: cuda when available)."""
+    runs (default: cuda)."""
 
     RATIO_SLACK = 1.05
 
@@ -135,7 +137,7 @@ class BatchDecompressor:
     """Decompress many independent buffers; failed items yield None.
 
     use_device=True decodes the raw-DEFLATE payloads on `device`
-    (default: cuda when available). A batch of fewer than SMALL_BATCH
+    (default: cuda). A batch of fewer than SMALL_BATCH
     items goes to the small-batch decoder (64 KiB per stream in, ~64 KiB
     out); a larger one to the two-pass decoder (1 MiB per stream in and
     out), where resolve="device" keeps LZ resolution on the device, so

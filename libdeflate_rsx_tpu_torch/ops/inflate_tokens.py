@@ -1,12 +1,46 @@
 """Pass 1 of the two-pass decoder: raw-DEFLATE streams -> LZ tokens.
 
 Port of `libdeflate_rsx_tpu/ops/pallas/inflate_tokens.py`. The Pallas
-kernel `_make_kernel` becomes the CUDA kernel in
-`csrc/inflate_tokens.cu`, one thread per stream. `pass1_plain` beside it
-is the plain PyTorch version of the same function: it decodes all
-streams of a batch in lockstep with tensor ops over the batch dimension.
-`pass1` takes the kernel for a CUDA tensor and the plain version for a
-CPU tensor, and nothing else.
+kernel `_make_kernel` becomes the CUDA kernels in
+`csrc/inflate_tokens.cu`. `pass1_plain` beside them is the plain PyTorch
+version of the same function: it decodes all streams of a batch in
+lockstep with tensor ops over the batch dimension.
+
+`pass1` splits each stream at its sync points and decodes the pieces in
+parallel (the segment route):
+1. finder (`find_segments`, tensor ops): every byte offset p of a stream
+   with bytes p..p+3 == 00 00 FF FF (the LEN/NLEN of an empty stored
+   block, which Z_SYNC_FLUSH, Z_FULL_FLUSH and the L6 encoder's SYNC join
+   leave between blocks) gives a candidate segment start at bit 8(p+4)
+   when p+4 < len; bit 0 always starts one;
+2. measure: every candidate is decoded from its bit as a block start. It
+   stops at the end of an empty non-final stored block (SYNC), at DONE
+   or at BAD, and records its stop bit, its tokens and output length,
+   and the largest dist - outpos of its matches, which may reach into
+   earlier segments and are not judged there. A stream's first segment
+   is the serial decode's own beginning: it judges every match and
+   writes its tokens straight into the stream's row; any other segment
+   writes its tokens to scratch, as far as its room there goes (a
+   quarter of its bits up to the next candidate, plus 16);
+3. chain: per stream, from the first segment, follow each SYNC stop bit
+   to the candidate that starts there, adding output lengths and token
+   counts. The stream is finished when the walk reaches DONE with every
+   segment's matches within the output before it and the total within
+   out_cap, or when the first segment is BAD (that is the serial
+   decode's verdict). Decoding from a true block boundary is exact and
+   the walk lands only on true boundaries, so a false candidate (00 00
+   FF FF inside stored data or a block body) costs work and never
+   changes a result;
+4. emit: the later segments of each finished stream are copied from
+   scratch to their place in the row; one whose tokens did not fit its
+   room is decoded again into its place;
+5. rerun: any other stream (a later segment BAD, a failed check, a walk
+   that finds no candidate) is decoded serially from bit 0, with sync
+   stops off: the serial verdict and stats.
+On a CUDA tensor steps 2-5 are the kernels of `csrc/inflate_tokens.cu`;
+on a CPU tensor the same orchestration runs in plain PyTorch, with the
+segment decode done by `pass1_plain`'s lockstep loop (`_decode_rows`,
+rows are segments) and the chain a loop per stream.
 
 Both compute what the JAX kernel computes, not its schedule. Inputs are
 one flat uint8 tensor of the concatenated streams, int64 offsets and
@@ -38,21 +72,31 @@ import torch
 from . import _build
 from .tokens import KIND_LIT, KIND_MATCH, KIND_SHIFT, resolve_tokens_np
 
-# stream modes (active = mode < DONE)
-BLKSTART, PRELEN, LENS, AWAITBUILD, BODY, STORED, DONE, BAD = range(8)
+# stream modes (active = mode < DONE); a segment stops at SYNC
+BLKSTART, PRELEN, LENS, AWAITBUILD, BODY, STORED, DONE, BAD, SYNC = range(9)
 STATS = 4           # stats columns: mode, outlen, bits consumed, ntokens
+SEG_RES = 5         # segment columns: the stats columns, then max excess
 
 # precode length order (RFC 1951 3.2.7)
 CLCL_ORDER = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1,
               15)
 
 IN_CAP = 65536
+MAX_LEN = 1 << 28   # longest stream pass 1 takes, in bytes
 OUT_CAP = 65536
 _IN_BUCKETS = (65536, 262144, 1048576)
 _CAP_BUCKETS = (2048, 16384, 65536, 262144, 1048576)
 
-#: kernel launches made by `pass1` (the plain version does not count)
+#: kernel launches made by `pass1`: one per call on a CUDA tensor (the
+#: four kernels of the segment route; the plain version does not count)
 LAUNCHES = 0
+#: the segment route's counts over all `pass1` calls, on either device:
+#: segments measured, candidates (other than bit 0) that no chain landed
+#: on, streams finished by the chain, streams rerun serially
+SEGMENTS = 0
+FALSE_CANDIDATES = 0
+CONFIRMED = 0
+RERUNS = 0
 
 _TOK_LIT = KIND_LIT << KIND_SHIFT
 _TOK_MATCH = KIND_MATCH << KIND_SHIFT
@@ -114,48 +158,224 @@ def _check(data, offsets, lengths, out_cap):
         raise ValueError("pass-1 inputs must be contiguous")
     if not 0 < out_cap < (1 << 30):
         raise ValueError(f"out_cap {out_cap} out of range")
+    if data.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pass 1 runs on cuda or cpu tensors, not "
+                         f"{data.device}")
+    if lengths.numel() and int(lengths.max()) >= MAX_LEN:
+        raise ValueError(f"streams must be shorter than {MAX_LEN} bytes "
+                         f"(stats count their bits in int32)")
 
 
 def _kernel_lib():
     lib = _build.load("inflate_tokens")
-    fn = lib.ldrsx_inflate_tokens
+    fn = lib.ldrsx_pass1
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p] * 7
         fn.restype = ctypes.c_int
     return fn
 
 
 def pass1(data: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor,
-          out_cap: int):
-    """Entropy-decode a batch of raw-DEFLATE streams into LZ tokens.
+          out_cap: int, *, _sync_stops: bool = True):
+    """Entropy-decode a batch of raw-DEFLATE streams into LZ tokens, by
+    the segment route (module docstring).
 
-    CUDA tensors go to the CUDA kernel, CPU tensors to `pass1_plain`.
-    Returns (tokens (B, out_cap) int32, stats (B, 4) int32) on the
-    inputs' device."""
+    CUDA tensors go to the CUDA kernels, CPU tensors to the plain
+    versions of the same steps. Returns (tokens (B, out_cap) int32,
+    stats (B, 4) int32) on the inputs' device, equal to `pass1_plain`'s.
+    `_sync_stops=False` decodes every stream serially from bit 0 with the
+    same kernels (one segment per stream), to time the route apart."""
     global LAUNCHES
     _check(data, offsets, lengths, out_cap)
     dev = data.device
-    if dev.type == "cpu":
-        return pass1_plain(data, offsets, lengths, out_cap)
-    if dev.type != "cuda":
-        raise ValueError(f"pass1 runs on cuda or cpu tensors, not {dev}")
-    fn = _kernel_lib()
     b = offsets.shape[0]
-    tokens = torch.zeros((b, out_cap), dtype=torch.int32, device=dev)
     stats = torch.zeros((b, STATS), dtype=torch.int32, device=dev)
     if b == 0:
-        return tokens, stats
+        return torch.zeros((0, out_cap), dtype=torch.int32, device=dev), stats
+    seg_stream, seg_bit, seg_first = find_segments(data, offsets, lengths,
+                                                   _sync_stops)
+    room, at = _scratch(lengths, out_cap, seg_stream, seg_bit)
+    # the rows, then the segments' scratch, then a trash slot
+    tokens = torch.zeros(b * out_cap + int((room + 1).sum()) + 1,
+                         dtype=torch.int32, device=dev)
+    args = (data, offsets, lengths, out_cap, seg_stream, seg_bit, seg_first,
+            room, at + b * out_cap, _sync_stops, tokens, stats)
+    if dev.type == "cpu":
+        landed, rerun = _segments_plain(*args)
+    else:
+        landed, rerun = _segments_kernel(*args)
+        LAUNCHES += 1
+    _count(seg_bit, landed, rerun)
+    return tokens[:b * out_cap].view(b, out_cap), stats
+
+
+def find_segments(data, offsets, lengths, sync_stops: bool = True):
+    """Candidate segment starts, in stream order: (stream int64 (S,),
+    start bit int64 (S,), first (B+1,) int64: the segments of stream b
+    are first[b]..first[b+1]-1, the first of them at bit 0).
+
+    A candidate is a byte offset p of a stream with bytes p..p+3 == 00 00
+    FF FF and p+4 < len; it starts at bit 8(p+4). Streams are mapped to
+    the flat input by their offsets; where two streams' bytes overlap,
+    some of their candidates may be missed, which costs only a serial
+    rerun. sync_stops=False gives bit 0 alone."""
+    dev = data.device
+    i64 = torch.int64
+    b = offsets.shape[0]
+    streams = [torch.arange(b, device=dev)]
+    bits = [torch.zeros(b, dtype=i64, device=dev)]
+    if sync_stops and data.numel() >= 4 and b:
+        d = data
+        hit = (d[:-3] == 0) & (d[1:-2] == 0) & (d[2:-1] == 0xFF) \
+            & (d[3:] == 0xFF)
+        pos = hit.nonzero().flatten()
+        if pos.numel():
+            so, order = torch.sort(offsets, stable=True)
+            k = torch.searchsorted(so, pos, right=True) - 1
+            s = order[k.clamp(min=0)]
+            rel = pos - offsets[s]
+            keep = (k >= 0) & (rel + 4 < lengths[s].to(i64))
+            streams.append(s[keep])
+            bits.append(8 * (rel[keep] + 4))
+    st, bt = torch.cat(streams), torch.cat(bits)
+    order = torch.argsort(st * (1 << 40) + bt)
+    st, bt = st[order], bt[order]
+    first = torch.searchsorted(st, torch.arange(b + 1, device=dev))
+    return st, bt, first
+
+
+def _scratch(lengths, out_cap, seg_stream, seg_bit):
+    """Scratch room (int64 (S,), in tokens) of each segment after the
+    first of its stream, and where it starts in the scratch: a quarter of
+    the segment's bits up to the next candidate (or the stream's end),
+    plus 16, at most out_cap, and one slot more that takes the tokens
+    past the room (the kernel stores each token at min(ntok, room)).
+    Tokens cost a bit or more each, and the true segments run to the next
+    true candidate; one that does not fit is decoded again in the emit
+    step."""
+    same = torch.zeros_like(seg_bit, dtype=torch.bool)
+    same[:-1] = seg_stream[1:] == seg_stream[:-1]
+    end = torch.where(same, torch.roll(seg_bit, -1),
+                      8 * lengths.to(torch.int64)[seg_stream])
+    room = torch.where(seg_bit > 0, ((end - seg_bit) >> 2) + 16, 0)
+    room = room.clamp(max=out_cap)
+    return room, torch.cumsum(room + 1, 0) - room - 1
+
+
+def _count(seg_bit, landed, rerun) -> None:
+    global SEGMENTS, FALSE_CANDIDATES, CONFIRMED, RERUNS
+    false, reruns = torch.stack([((seg_bit > 0) & (landed == 0)).sum(),
+                                 rerun.sum()]).tolist()
+    SEGMENTS += seg_bit.numel()
+    FALSE_CANDIDATES += false
+    RERUNS += reruns
+    CONFIRMED += rerun.numel() - reruns
+
+
+def _segments_kernel(data, offsets, lengths, out_cap, seg_stream, seg_bit,
+                     seg_first, room, at, sync_stops, tokens, stats):
+    """Steps 2-5 of the segment route on the card: one call of the C
+    entry, which launches the measure, chain, emit and rerun kernels.
+    tokens is flat: the rows, then the scratch (segment i's room[i]
+    tokens from at[i]), then a trash slot. Fills tokens and stats;
+    returns (landed (S,), rerun (B,)) int32."""
+    fn = _kernel_lib()
+    dev = data.device
+    b, nseg = offsets.shape[0], seg_bit.numel()
+    seg_res = torch.empty((nseg, SEG_RES), dtype=torch.int32, device=dev)
+    seg_base = torch.full((nseg,), -1, dtype=torch.int32, device=dev)
+    landed = torch.zeros(nseg, dtype=torch.int32, device=dev)
+    rerun = torch.zeros(b, dtype=torch.int32, device=dev)
+    room = room.to(torch.int32)
     with torch.cuda.device(dev):
         rc = fn(data.data_ptr(), offsets.data_ptr(), lengths.data_ptr(), b,
-                out_cap, tokens.data_ptr(), stats.data_ptr(),
+                out_cap, seg_stream.data_ptr(), seg_bit.data_ptr(),
+                seg_first.data_ptr(), room.data_ptr(),
+                at.data_ptr(), nseg, int(sync_stops),
+                seg_res.data_ptr(), seg_base.data_ptr(), landed.data_ptr(),
+                rerun.data_ptr(), tokens.data_ptr(), stats.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"inflate_tokens kernel launch failed: "
                            f"CUDA error {rc}")
-    LAUNCHES += 1
-    return tokens, stats
+    return landed, rerun
+
+
+def _segments_plain(data, offsets, lengths, out_cap, seg_stream, seg_bit,
+                    seg_first, room, at, sync_stops, tokens, stats):
+    """Steps 2-5 of the segment route in plain PyTorch: what
+    `_segments_kernel` computes."""
+    first = seg_bit == 0
+    res = _decode_rows(data, offsets, lengths, out_cap, seg_stream, seg_bit,
+                       sync_stops, first, tokens,
+                       torch.where(first, seg_stream * out_cap, at),
+                       torch.where(first, out_cap, room))
+    fin, base, landed, rerun = _chain(res.numpy(), seg_bit.numpy(),
+                                      seg_first.numpy(), out_cap)
+    stats.copy_(torch.from_numpy(fin))
+    base = torch.from_numpy(base).to(torch.int64)
+    rerun = torch.from_numpy(rerun)
+    emit = (base >= 0) & (rerun[seg_stream] == 0)
+    ntok = res[:, 3]
+    dest = seg_stream * out_cap + base
+    copy = (emit & (ntok <= room)).nonzero().flatten()
+    if copy.numel():                  # from scratch to the segments' places
+        n = ntok[copy]
+        k = torch.arange(int(n.sum())) - torch.repeat_interleave(
+            torch.cumsum(n, 0) - n, n)
+        tokens[torch.repeat_interleave(dest[copy], n) + k] = \
+            tokens[torch.repeat_interleave(at[copy], n) + k]
+    again = (emit & (ntok > room)).nonzero().flatten()
+    if again.numel():                 # past their room: decoded again
+        _decode_rows(data, offsets, lengths, out_cap, seg_stream[again],
+                     seg_bit[again], True, again < 0, tokens, dest[again],
+                     torch.full_like(again, out_cap))
+    again = rerun.nonzero().flatten()
+    if again.numel():
+        z = torch.zeros_like(again)
+        res = _decode_rows(data, offsets, lengths, out_cap, again, z, False,
+                           z == 0, tokens, again * out_cap, z + out_cap)
+        stats[again] = res[:, :STATS].to(torch.int32)
+    return torch.from_numpy(landed), rerun
+
+
+def _chain(res, seg_bit, seg_first, out_cap):
+    """The chain of step 3 per stream, in numpy: (stats (B, 4) int32,
+    token base per segment int32 (-1: not emitted), landed (S,) int32,
+    rerun (B,) int32). The stats of a rerun stream are left zero."""
+    b = len(seg_first) - 1
+    stats = np.zeros((b, STATS), np.int32)
+    base = np.full(len(seg_bit), -1, np.int32)
+    landed = np.zeros(len(seg_bit), np.int32)
+    rerun = np.ones(b, np.int32)
+    for s in range(b):
+        i, last = int(seg_first[s]), int(seg_first[s + 1])
+        pout = ptok = 0
+        while True:
+            landed[i] = 1
+            mode, outlen, bits, ntok, excess = (int(v) for v in res[i])
+            if mode == BAD:
+                if i == seg_first[s]:        # the serial decode's verdict
+                    stats[s] = res[i, :STATS]
+                    rerun[s] = 0
+                break
+            if excess > pout or pout + outlen > out_cap:
+                break
+            if i != seg_first[s]:
+                base[i] = ptok
+            pout += outlen
+            ptok += ntok
+            if mode == DONE:
+                stats[s] = (DONE, pout, bits, ptok)
+                rerun[s] = 0
+                break
+            j = i + 1 + int(np.searchsorted(seg_bit[i + 1:last], bits))
+            if j >= last or seg_bit[j] != bits:
+                break
+            i = j
+    return stats, base, landed, rerun
 
 
 # ------------------------------------------------------------ plain version
@@ -242,25 +462,49 @@ def _put(t, col, mask, val):
 
 def pass1_plain(data: torch.Tensor, offsets: torch.Tensor,
                 lengths: torch.Tensor, out_cap: int):
-    """Plain PyTorch pass 1: the same (tokens, stats) as the CUDA kernel.
+    """Plain PyTorch pass 1: the same (tokens, stats) as `pass1`.
 
-    All streams advance in lockstep, one step per loop iteration (see the
-    module docstring for what a step is); stored bytes advance up to
-    _STORED_CHUNK steps at once, with the per-step checks applied byte by
-    byte. Runs on any device."""
+    Every stream is decoded serially from bit 0: all streams advance in
+    lockstep, one step per loop iteration (see the module docstring for
+    what a step is); stored bytes advance up to _STORED_CHUNK steps at
+    once, with the per-step checks applied byte by byte. Runs on the CPU
+    or the card."""
     _check(data, offsets, lengths, out_cap)
     dev = data.device
-    i64 = torch.int64
     b = offsets.shape[0]
-    stats = torch.zeros((b, STATS), dtype=torch.int32, device=dev)
+    tokens = torch.zeros(b * out_cap + 1, dtype=torch.int32, device=dev)
+    z = torch.zeros(b, dtype=torch.int64, device=dev)
+    rows = torch.arange(b, device=dev)
+    res = _decode_rows(data, offsets, lengths, out_cap, rows, z, False,
+                       z == 0, tokens, rows * out_cap, z + out_cap)
+    return (tokens[:b * out_cap].view(b, out_cap),
+            res[:, :STATS].to(torch.int32))
+
+
+def _decode_rows(data, offsets, lengths, out_cap, row_stream, start_bit,
+                 sync_stop: bool, strict, tokens, tok_at, tok_room):
+    """The plain segment decoder: row r decodes stream row_stream[r] from
+    bit start_bit[r] as a block start, in lockstep with the other rows.
+
+    sync_stop: a row stops (SYNC) at the end of an empty non-final stored
+    block. strict (R,) bool: a match reaching before the row's own output
+    is BAD; otherwise it is kept and its reach counted in the excess
+    column. The row's tokens go to the flat tensor `tokens` (its last
+    slot a trash slot) from index tok_at[r], as many as tok_room[r]
+    holds. Returns (R, SEG_RES) int64: mode (DONE, BAD or SYNC),
+    output length, bits consumed (counted from the stream's bit 0), token
+    count and the largest dist - outpos of the row's matches (0 if
+    none)."""
+    dev = data.device
+    i64 = torch.int64
+    b = row_stream.shape[0]
     if b == 0:
-        return torch.zeros((b, out_cap), dtype=torch.int32, device=dev), stats
+        return torch.zeros((0, SEG_RES), dtype=i64, device=dev)
     src = torch.cat([data.to(i64), torch.zeros(1, dtype=i64, device=dev)])
     nsrc = src.numel()
-    off = offsets.to(i64)
-    ln = lengths.to(i64)
+    off = offsets.to(i64)[row_stream]
+    ln = lengths.to(i64)[row_stream]
     inbits = ln * 8
-    ar = torch.arange(b, device=dev)
     order = torch.tensor(CLCL_ORDER, dtype=i64, device=dev)
 
     def byte_at(idx):       # (B, k) byte indices -> bytes, 0 past the end
@@ -279,18 +523,18 @@ def pass1_plain(data: torch.Tensor, offsets: torch.Tensor,
         v = win[(off + byte).clamp(0, nsrc - 1)] & ((1 << (8 * nvalid)) - 1)
         return (v >> (bitpos & 7)) & 0xFFFFFFFF
 
-    trash = b * out_cap
-    toks = torch.zeros(trash + 1, dtype=torch.int32, device=dev)
+    trash = tokens.numel() - 1
     z = torch.zeros(b, dtype=i64, device=dev)
     mode, final, outpos, srem = z.clone(), z.clone(), z.clone(), z.clone()
     nlit, ndist, hclen, idx = z.clone(), z.clone(), z.clone(), z.clone()
     prev, rep, repval = z - 1, z.clone(), z.clone()
-    bitpos, ntok = z.clone(), z.clone()
+    ntok, excess = z.clone(), z.clone()
+    bitpos = start_bit.to(i64).clone()
 
     def emit(mask, tok):
         nonlocal ntok
-        where = torch.where(mask, ar * out_cap + ntok, trash)
-        toks[where] = tok.to(torch.int32)
+        where = torch.where(mask & (ntok < tok_room), tok_at + ntok, trash)
+        tokens[where] = tok.to(torch.int32)
         ntok = ntok + mask.to(i64)
 
     ll_lens = torch.zeros((b, 288), dtype=i64, device=dev)
@@ -312,6 +556,7 @@ def pass1_plain(data: torch.Tensor, offsets: torch.Tensor,
         any_act, any_blk, any_pre, any_lens, any_body, any_stored = flags
         if not any_act:
             break
+        sync_hit = None
 
         if any_blk:                              # block header
             mS = mode0 == BLKSTART
@@ -344,6 +589,8 @@ def pass1_plain(data: torch.Tensor, offsets: torch.Tensor,
             pre_lens = _where_rows(mDyn, 0, pre_lens)
             after = torch.where(final == 1, DONE, BLKSTART)
             mode = torch.where(mSt, torch.where(slen > 0, STORED, after), mode)
+            if sync_stop:        # an empty non-final stored block ends here
+                sync_hit = mSt & (slen == 0) & (final == 0)
             mode = torch.where(mStat, BODY, mode)
             mode = torch.where(mDyn, PRELEN, mode)
             mode = torch.where(bad, BAD, mode)
@@ -428,9 +675,11 @@ def pass1_plain(data: torch.Tensor, offsets: torch.Tensor,
                 deb, dbase = _dist_extra(dsym)
                 dist = dbase + ((pk >> dlen) & ((1 << deb) - 1))
                 bitpos = bitpos + torch.where(mM, dlen + deb, 0)
-                badd = mM & (dbadc | (dsym > 29) | (dist > outpos)
+                badd = mM & (dbadc | (dsym > 29) | (strict & (dist > outpos))
                              | (outpos + length > out_cap))
                 wm = mM & ~badd
+                excess = torch.where(wm, torch.maximum(excess, dist - outpos),
+                                     excess)
                 emit(wm, _TOK_MATCH | (length - 3) | ((dist - 1) << 8))
                 outpos = torch.where(wm, outpos + length, outpos)
                 mode = torch.where(badd, BAD, mode)
@@ -451,11 +700,11 @@ def pass1_plain(data: torch.Tensor, offsets: torch.Tensor,
             nuse = torch.where(by_cap, i_cap + 1, nemit)
             nemit = torch.where(mV, nemit, 0)
             nuse = torch.where(mV, nuse, 0)
-            em = kchunk < nemit[:, None]
+            em = (kchunk < nemit[:, None]) \
+                & (ntok[:, None] + kchunk < tok_room[:, None])
             byts = byte_at((bitpos >> 3)[:, None] + kchunk)
-            where = torch.where(em, (ar * out_cap + ntok)[:, None] + kchunk,
-                                trash)
-            toks[where] = (_TOK_LIT | byts).to(torch.int32)
+            where = torch.where(em, (tok_at + ntok)[:, None] + kchunk, trash)
+            tokens[where] = (_TOK_LIT | byts).to(torch.int32)
             ntok = ntok + nemit
             outpos = outpos + nemit
             bitpos = bitpos + 8 * nuse
@@ -467,9 +716,10 @@ def pass1_plain(data: torch.Tensor, offsets: torch.Tensor,
 
         # consumed past the stream end while still active -> malformed
         mode = torch.where((mode < DONE) & (bitpos > inbits), BAD, mode)
+        if sync_hit is not None:
+            mode = torch.where(sync_hit & (mode == BLKSTART), SYNC, mode)
 
-    stats = torch.stack([mode, outpos, bitpos, ntok], dim=1).to(torch.int32)
-    return toks[:trash].view(b, out_cap), stats
+    return torch.stack([mode, outpos, bitpos, ntok, excess], dim=1)
 
 
 # ------------------------------------------------------------ batch wrappers

@@ -58,6 +58,27 @@ def test_kernel_equals_plain_on_card(card, out_cap):
     assert torch.equal(tok_k, tok_p)
 
 
+@pytest.mark.parametrize("out_cap", [2500, 65536])
+def test_segment_route_equals_plain_on_card(card, out_cap):
+    """The segment route's kernels against the whole-stream plain version
+    on streams with sync points (false candidates, matches across sync
+    points, out_cap in a later segment, bit-flipped), in one launch, and
+    the serial route (sync stops off) likewise."""
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+    from test_torch_pass1_segments import bit_flipped, sync_cases
+
+    streams = [z for _, z, _ in sync_cases()] + bit_flipped(24) + _cases()
+    args = it.pack_streams(streams, 65536, card)[:3]
+    tok_p, st_p = it.pass1_plain(*args, out_cap)
+    segs, reruns = it.SEGMENTS, it.RERUNS
+    for sync in (True, False):
+        tok_k, st_k = it.pass1(*args, out_cap, _sync_stops=sync)
+        torch.cuda.synchronize()
+        assert torch.equal(st_k, st_p)
+        assert torch.equal(tok_k, tok_p)
+    assert it.SEGMENTS > segs + 2 * len(streams) and it.RERUNS > reruns
+
+
 def test_empty_batch_launches_nothing(card):
     from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
 
