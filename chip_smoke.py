@@ -36,17 +36,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    slices at zlib levels 1, 6 and 9, stored and Z_FIXED slices,
    bit-flipped streams, the small cases, a stream over the input cap
    and one whose output passes the output cap; every output word equal;
-   then again on the small-batch path's 7 zlib-6 slices, which give the
-   kernel's timed record and its bound; the kernel alone on 256 zlib-6
-   slices, and beside pass 1 on the 7 slices;
+   likewise on the hand-built edge rows of tests/_port_corpus.py; then
+   again on the small-batch path's 7 zlib-6 slices, which give the
+   kernel's timed record and its bound; the kernel alone on the first of
+   them (a batch of 1, the per-request case: equal to its row of the 7)
+   and on 256 zlib-6 slices (two waves: one block per SM), and beside
+   pass 1 on the 7 slices;
 10. the small-batch path: BatchDecompressor(use_device=True) in the
    three formats on batches of 1 and 7 zlib-6 slices, byte-exact with
    no host fallback; inflate_v2's launch count over it must be positive
    and pass 1's zero;
 11. inflate_static against its plain version: stored and Z_FIXED
-   slices, dynamic, truncated and bit-flipped streams; every output word
-   equal; then again on the static path's 128 Z_FIXED slices, which give
-   the kernel's timed record and its bound;
+   slices, dynamic, truncated and bit-flipped streams, and the edge
+   rows; every output word equal; then again on the static path's 128
+   Z_FIXED slices, which give the kernel's timed record and its bound;
 12. the static path: inflate_device_static on 128 Z_FIXED slices,
    byte-exact; inflate_static's launch count over it must be positive.
 
@@ -71,7 +74,8 @@ import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
-from _port_corpus import make_corpus, mutated_streams, raw_z  # noqa: E402
+from _port_corpus import (edge_cases, edge_rows, make_corpus,  # noqa: E402
+                          mutated_streams, raw_z)
 
 ITEM = 1 << 20          # compress item size (bytes)
 SLICE = 65536           # decode-set slice size (bytes)
@@ -471,18 +475,45 @@ def stream_kernel_vs_plain(mod, name, cases, label):
     return err, ms, plain_ms, out
 
 
+def stream_bytes(name, streams, originals) -> int:
+    """Bytes a stream kernel must move for streams that decode to their
+    originals: each stream byte and length read once, each decoded byte
+    and the trailer words (inflate_v2: flags and count; inflate_static:
+    count) written once."""
+    trailer = 8 if name == "inflate_v2" else 4
+    return sum(len(z) + 4 + trailer for z in streams) \
+        + sum(map(len, originals))
+
+
+def edge_vs_plain(mod, name):
+    """A stream kernel and its plain version on the card on the
+    hand-built edge rows (tests/_port_corpus.edge_cases: rows filled to
+    their last byte, bits read past the row, bytes past a stream's end,
+    distances 31-33, 64 and 32,768, 15-bit codes): every output word
+    equal. Returns the max abs err."""
+    import torch
+    cases = edge_cases()
+    lens, words = (torch.from_numpy(a).cuda() for a in edge_rows(cases))
+    out_k = getattr(mod, name)(lens, words)
+    out_p = getattr(mod, name + "_plain")(lens, words)
+    err = int((out_k.long() - out_p.long()).abs().max())
+    if not torch.equal(out_k, out_p):
+        bad = (out_k != out_p).any(dim=1).nonzero().flatten().tolist()
+        raise AssertionError(f"{name} edge rows: kernel != plain (max abs err "
+                             f"{err}) for {[cases[i][0] for i in bad]}")
+    n_ok = int((out_k[:, -1] >= 0).sum())
+    log(f"{name} vs plain on {len(cases)} edge rows: equal ({n_ok} decode), "
+        f"max abs err {err}")
+    return err
+
+
 def stream_record(mod, name, replaces, streams, originals, err, label):
     """The stream kernel's record on its path's own inputs: streams that
     each decode to their original within the caps, so every input and
     output byte is needed. `err` is the check set's max abs err."""
     err2, ms, plain_ms, _ = stream_kernel_vs_plain(
         mod, name, list(zip(streams, originals)), label)
-    # bytes the kernel must move: each stream byte and length read once,
-    # each decoded byte and the trailer words (inflate_v2: flags and
-    # count; inflate_static: count) written once
-    trailer = 8 if name == "inflate_v2" else 4
-    nbytes = sum(len(z) + 4 + trailer for z in streams) \
-        + sum(map(len, originals))
+    nbytes = stream_bytes(name, streams, originals)
     log(f"  {label}: equal, max abs err {err2}; {name} kernel {ms:.3f} ms "
         f"per launch (CUDA events, {KERNEL_REPS} launches); plain version "
         f"{plain_ms:.1f} ms (host clock, one run)")
@@ -501,9 +532,11 @@ def stream_cases():
 
 
 def phase_v2_kernel(data: bytes):
-    """inflate_v2 against its plain version at its 64 KiB caps; then the
-    kernel alone on the 256 zlib-6 slices, and beside pass 1 on the
-    small path's 7 slices. Returns its JSON record."""
+    """inflate_v2 against its plain version at its 64 KiB caps and on the
+    edge rows; then the kernel alone on a batch of 1 and on the 256
+    zlib-6 slices, and beside pass 1 on the small path's 7 slices.
+    Returns its JSON record."""
+    import torch
     from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
     from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
 
@@ -516,7 +549,7 @@ def phase_v2_kernel(data: bytes):
         c = data[(40 + i) * SLICE:(40 + i) * SLICE + CHECK_SLICE]
         cases += [(raw_z(c, 0), c), (fixed_z(c), c)]
     over_in = bytes(random.Random(1).randrange(256) for _ in range(SLICE))
-    big = data[:SLICE + 8192]
+    big = data[:4096] * 18      # output past the cap in few (long) matches
     cases += [(raw_z(over_in, 0), None), (raw_z(big), None)]
     cases += stream_cases()
     err, ms, plain_ms, out = stream_kernel_vs_plain(
@@ -533,11 +566,24 @@ def phase_v2_kernel(data: bytes):
     log(f"  inflate_v2 kernel {ms:.3f} ms per launch (CUDA events, "
         f"{KERNEL_REPS} launches); plain version {plain_ms:.1f} ms (host "
         f"clock, one run), on that same set")
+    err = max(err, edge_vs_plain(v2, "inflate_v2"))
     originals = small_batch_slices(data)
     seven = [raw_z(c) for c in originals]
     rec = stream_record(v2, "inflate_v2", "ops/pallas/inflate_v2.py:60",
                         seven, originals, err,
                         f"the small-batch path's {len(seven)} slices")
+    # the per-request case: the first of those slices alone, equal to its
+    # row of the batch of 7 (held to the plain version above)
+    lens, words = v2.pack(seven, "cuda")
+    row0 = v2.inflate_v2(lens, words)[0]
+    one = (lens[:1].contiguous(), words[:1].contiguous())
+    assert torch.equal(v2.inflate_v2(*one)[0], row0), "batch of 1 != batch of 7"
+    ms1 = time_cuda(lambda: v2.inflate_v2(*one), KERNEL_REPS)
+    nb1 = stream_bytes("inflate_v2", seven[:1], originals[:1])
+    log(f"  inflate_v2 kernel on a batch of 1 zlib-6 slice (the per-request "
+        f"case): {ms1:.3f} ms per launch (CUDA events, {KERNEL_REPS} "
+        f"launches); bound {nb1 / HBM_BYTES_PER_MS:.6f} ms; equal to its row "
+        f"of the batch of 7")
     slices = [raw_z(data[i * SLICE:(i + 1) * SLICE]) for i in range(N_SLICES)]
     lens, words = v2.pack(slices, "cuda")
     ms256 = time_cuda(lambda: v2.inflate_v2(lens, words), KERNEL_REPS)
@@ -629,7 +675,7 @@ def phase_static_kernel(data: bytes):
         cases += [(raw_z(c, 0), c), (fixed_z(c), c),
                   (z, None if (z[0] >> 1) & 3 == 2 else MUTATED)]
     c = data[:SLICE]
-    cases += [(fixed_z(c)[:20000], MUTATED), (raw_z(c, 0)[:30000], None)]
+    cases += [(fixed_z(c)[:8000], MUTATED), (raw_z(c, 0)[:30000], None)]
     # the small cases are mostly dynamic: held to the plain version only
     cases += [(z, MUTATED) for z, _ in stream_cases()]
     err, ms, plain_ms, out = stream_kernel_vs_plain(
@@ -641,6 +687,7 @@ def phase_static_kernel(data: bytes):
     log(f"  inflate_static kernel {ms:.3f} ms per launch (CUDA events, "
         f"{KERNEL_REPS} launches); plain version {plain_ms:.1f} ms (host "
         f"clock, one run), on that same set")
+    err = max(err, edge_vs_plain(st, "inflate_static"))
     slices, streams = static_slices(data)
     return stream_record(st, "inflate_static",
                          "ops/pallas/inflate_static.py:40", streams, slices,

@@ -1,380 +1,552 @@
 // Small-batch DEFLATE decoder on NVIDIA Hopper (sm_90a): whole raw-DEFLATE
-// streams (BTYPE 00, 01 and 10) -> decoded bytes, one stream per block.
+// streams (BTYPE 00, 01 and 10) -> decoded bytes, one stream per block of
+// one warp.
 //
-// Replaces libdeflate_rsx_tpu/ops/pallas/inflate_v2.py::_kernel. It computes
-// what that kernel computes: the same two-level decode tables built from
-// each block's header (10-bit litlen root, 8-bit offset root, 7-bit
-// precode table; entry layout bits 0-4 length, 5-7 type, 8-15 extra or
-// subtable bits, 16-31 payload), the same cause bits in the flag word
-// (out[OUT_WORDS-2]) and the same count or -1 (out[OUT_WORDS-1]). The
-// plain PyTorch version of this kernel is ops/inflate_v2.py's
-// inflate_v2_plain; its docstring lists the rules.
+// Replaces libdeflate_rsx_tpu/ops/pallas/inflate_v2.py::_kernel. It gives
+// what that kernel gives: the decoded bytes, the cause bits in the flag
+// word (out[OUT_WORDS-2]) and the count or -1 (out[OUT_WORDS-1]); bits
+// read past the row wrap to its start, as the TPU kernel's word index
+// does. The plain PyTorch version of this kernel is ops/inflate_v2.py's
+// inflate_v2_plain; its docstring lists the rules. What the TPU forced
+// and this kernel drops: the stream DMA'd into scalar memory, the output
+// packed into int32 words by read-modify-write, the fori/while/cond
+// nesting, and tables filled symbol by symbol.
 //
-// What the TPU forced and this kernel drops: the stream DMA'd into scalar
-// memory and read as int32 words through funnel shifts, the output packed
-// into int32 words by read-modify-write, and the fori/while/cond nesting.
-// Here the stream is read from device memory through a 64-bit bit buffer
-// refilled a byte at a time (the row is read as a 64 KiB ring, as the TPU
-// kernel's word index wraps), and bytes are stored straight into the
-// output row in device memory.
-//
-// What bounds it on this card: the bytes it must move are each input byte
-// read once and each output byte written once, but decoding is serial
-// within a stream, so it is latency-bound: each symbol waits on its table
-// lookup and bit-buffer refill. A batch of a few streams fills a few SMs
-// of 132. The design keeps each stream's tables (~26 KB) in shared memory
-// and gives the stream a warp: all 32 lanes walk the stream's control flow
-// together (same data, same branches), lane 0 alone writes literals, and
-// the lanes split the table fills, subtable clears, stored-block copies
-// and LZ copies (every source byte of a match lies before it, so byte k
-// of a match at distance d is byte k % d before it), with a warp barrier
-// (__syncwarp orders memory among the lanes) wherever a lane reads what
-// another wrote.
+// What bounds it on this card: not bytes (its byte bound is ~1/15,000 of
+// its time) but latency. Decoding is serial within a stream: each
+// symbol's table lookup waits on the bits the one before it consumed,
+// and a batch of a few streams gives a few SMs one warp each, so every
+// dependent instruction's latency shows. What the design does about it
+// (stream_decode.cuh holds the parts shared with inflate_static.cu):
+// - Everything the decode loop touches is in shared memory or registers:
+//   the 64 KiB input row, staged by one TMA bulk copy; the output row,
+//   built there and written back whole in 16-byte stores (so the caller
+//   need not zero it); the tables. A literal's dependent chain is one
+//   shared table load, a length mask and a 64-bit shift of the bit
+//   buffer; literals are tested on the root entry, first.
+// - One table lookup per symbol: pre-decoded entries (litlen: 10-bit root
+//   and 5-bit subtables, literal / length base and extra bits / end of
+//   block; distance: 8-bit root and 7-bit subtables, base and extra bits;
+//   precode: flat 7 bits), room for a subtable under every root slot a
+//   valid code can split, so no symbol needs a canonical fallback. A slot
+//   no valid code fills (an incomplete code, litlen 286/287, distance
+//   30/31) holds 0, which the loop judges as the TPU kernel judges it.
+// - Tables built by the warp: canonical codes by ballots and scans, every
+//   slot filled by a canonical decode of its own bits (as pass 1 does),
+//   with no barrier per symbol. A code that is bad already is not
+//   filled: only the TPU fill's subtable overflow (BAD_TABLE) is worked
+//   out, in closed form, as the plain version does.
+// - LZ and stored copies split across the 32 lanes inside shared memory
+//   (one __syncwarp per match); literals are stored by every lane at once
+//   (the same byte to the same place: one store, no branch).
+// Shared memory: 192,016 bytes a block (one block per SM), set with
+// cudaFuncSetAttribute by the entry point.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "stream_decode.cuh"
+
 namespace {
 
-constexpr int IN_WORDS = 16384;
-constexpr int OUT_WORDS = 16384 + 128;
-constexpr int IN_MASK = IN_WORDS * 4 - 1;      // the row as a 64 KiB ring
+using sd::FULL;
+using sd::IN_WORDS;
+using sd::OUT_WORDS;
+constexpr int IN_MASK = sd::IN_BYTES - 1;
 constexpr int OUT_CAP = (OUT_WORDS - 2) * 4;
-constexpr int LL_WORDS = 4096, OF_WORDS = 2048, PRE_WORDS = 128;
+// the TPU kernel's table sizes, against which its subtable overflow is judged
+constexpr int JAX_LL_WORDS = 4096, JAX_OF_WORDS = 2048;
+constexpr int LL_ROOT = 10, LL_SUB = 5, LL_MAXSUB = 288;
+constexpr int OF_ROOT = 8, OF_SUB = 7, OF_MAXSUB = 30;
+constexpr int PRE_ROOT = 7;
 constexpr int LENS_WORDS = 320;
-constexpr int T_LIT = 0, T_BASE = 1, T_EOB = 2, T_SUB = 3;
-constexpr int PRE = 0, LITLEN = 1, OFFSET = 2;
+// entry: bits 0-3 code length (0: no valid code here), 4-5 type, 8-12
+// extra bits, 16-31 literal, length base, distance base or subtable start
+constexpr uint32_t E_LIT = 0, E_LEN = 1, E_EOB = 2, E_PTR = 3;
+enum Kind : int { K_PRE, K_LL, K_OF };
+
+// cause bits of the flag word (ops/inflate_v2.py)
+constexpr int BAD_BTYPE = 1, BAD_STORED_LEN = 2, BAD_STORED_END = 4,
+              BAD_COUNTS = 8, BAD_PRE_END = 16, BAD_OVERSUB = 32,
+              BAD_TABLE = 64, BAD_PRE_CODE = 128, BAD_REPEAT = 256,
+              BAD_LENS_COUNT = 512, BAD_LENS_END = 1024, BAD_NO_EOB = 2048,
+              BAD_LL_CODE = 4096, BAD_OF_CODE = 8192, BAD_DIST = 16384,
+              BAD_OUT_CAP = 32768, BAD_MATCH_END = 65536,
+              BAD_BLOCK_END = 131072, BAD_STREAM_END = 262144;
 
 __constant__ uint8_t kOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5,
                                    11, 4, 12, 3, 13, 2, 14, 1, 15};
 
-struct Smem {
-  int32_t ll[LL_WORDS];
-  int32_t of[OF_WORDS];
-  int32_t pre[PRE_WORDS];
-  int32_t lens[LENS_WORDS];
+struct Code {
+  int32_t lim[16];  // MSB-aligned 15-bit limit per code length (row 0 unused)
+  int32_t fb[16];   // base index - first code per code length
 };
 
-struct Reader {
-  const uint8_t* row;
-  uint64_t buf;
-  int nbits;
-  int next;   // next byte to load (mod 64 KiB)
-  int bp;     // bits consumed
-
-  __device__ __forceinline__ void seek(int bitpos) {
-    next = bitpos >> 3;
-    buf = 0;
-    nbits = 0;
-    bp = bitpos & ~7;
-    refill();
-    skip(bitpos & 7);
-  }
-  __device__ __forceinline__ void refill() {
-    while (nbits <= 56) {
-      buf |= static_cast<uint64_t>(row[next & IN_MASK]) << nbits;
-      nbits += 8;
-      ++next;
-    }
-  }
-  // the 32 bits at bp
-  __device__ __forceinline__ uint32_t peek() {
-    refill();
-    return static_cast<uint32_t>(buf);
-  }
-  __device__ __forceinline__ void skip(int n) {
-    buf >>= n;
-    nbits -= n;
-    bp += n;
-  }
+struct alignas(16) Smem {
+  uint32_t in[IN_WORDS];
+  uint32_t out[OUT_WORDS];
+  uint32_t ll[(1 << LL_ROOT) + (LL_MAXSUB << LL_SUB)];
+  uint32_t of[(1 << OF_ROOT) + (OF_MAXSUB << OF_SUB)];
+  uint32_t pre[1 << PRE_ROOT];
+  int32_t lens[LENS_WORDS];   // litlen 0..287, distance 288..317
+  Code c;                     // the code being built
+  uint16_t perm[288];
+  uint16_t sub_prefix[LL_MAXSUB];
+  uint64_t bar;
 };
 
 __device__ __forceinline__ int rev15(int x) {
   return static_cast<int>(__brev(static_cast<unsigned>(x) & 0xFFFFu) >> 17);
 }
 
-__device__ __forceinline__ int mask_bits(uint32_t v, int n) {
-  return static_cast<int>(v & ((1u << n) - 1u));
+__device__ __forceinline__ uint32_t mask(uint32_t n) { return (1u << n) - 1u; }
+
+// Canonical tables from code lengths, built by the warp: lane l (1..15)
+// counts the codes of length l by ballots, warp scans give lim and the
+// first index of each length, and each symbol's place in perm is that
+// index plus its rank among the symbols of its length. Returns whether
+// the code is over-subscribed (every lane).
+__device__ __noinline__ bool build(const int32_t* lens, int nsym, int nperm,
+                                   Code& c, uint16_t* perm, int lane) {
+  int cnt = 0;
+  for (int base = 0; base < nsym; base += 32) {
+    const int ln = base + lane < nsym ? lens[base + lane] : 0;
+#pragma unroll
+    for (int l = 1; l < 16; ++l) {
+      const int n = __popc(__ballot_sync(FULL, ln == l));
+      if (lane == l) cnt += n;
+    }
+  }
+  const bool coded = lane >= 1 && lane < 16;
+  int lim = coded ? cnt << (15 - lane) : 0;
+  int idx = coded ? cnt : 0;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int a = __shfl_up_sync(FULL, lim, o);
+    const int b = __shfl_up_sync(FULL, idx, o);
+    if (lane >= o) {
+      lim += a;
+      idx += b;
+    }
+  }
+  int first = idx - (coded ? cnt : 0);
+  const int lim_before = lim - (coded ? cnt << (15 - lane) : 0);
+  if (coded) {
+    c.lim[lane] = lim;
+    c.fb[lane] = first - (lim_before >> (15 - lane));
+  } else if (lane == 0) {
+    c.lim[0] = 1 << 29;
+    c.fb[0] = 0;
+  }
+  const int kraft = __shfl_sync(FULL, lim, 15);
+  for (int i = lane; i < nperm; i += 32) perm[i] = 0;
+  __syncwarp();
+  for (int base = 0; base < nsym; base += 32) {
+    const int s = base + lane;
+    const int ln = s < nsym ? lens[s] : 0;
+    const unsigned same = __match_any_sync(FULL, ln);
+    const int at = __shfl_sync(FULL, first, ln) +
+                   __popc(same & ((1u << lane) - 1u));
+    if (ln > 0) perm[at < nperm ? at : nperm - 1] = static_cast<uint16_t>(s);
+#pragma unroll
+    for (int l = 1; l < 16; ++l) {
+      const int n = __popc(__ballot_sync(FULL, ln == l));
+      if (lane == l) first += n;
+    }
+  }
+  __syncwarp();
+  return kraft > (1 << 15);
 }
 
-__device__ int entry(int kind, int sym) {
-  if (kind == PRE) return (sym << 16) | (T_LIT << 5);
-  if (kind == OFFSET) {
-    const int oeb = sym / 2 - 1 > 0 ? sym / 2 - 1 : 0;
-    const int obase = sym < 4 ? sym + 1 : ((2 + (sym & 1)) << oeb) + 1;
-    return sym <= 29 ? (obase << 16) | (oeb << 8) | (T_BASE << 5) : -1;
-  }
-  if (sym < 256) return (sym << 16) | (T_LIT << 5);
-  if (sym == 256) return T_EOB << 5;
-  if (sym > 285) return -1;
+// One canonical decode from the low 15 peeked bits: the symbol, its code
+// length in *lc, and *bad when no code of length <= 15 matches.
+__device__ __forceinline__ int decode(const Code& c, const uint16_t* perm,
+                                      int nperm, uint32_t pk, int* lc,
+                                      bool* bad) {
+  const int v = static_cast<int>(__brev(pk & 0x7FFFu) >> 17);
+  int length = 1;
+#pragma unroll
+  for (int l = 1; l < 16; ++l) length += v >= c.lim[l];
+  *bad = length >= 16;
+  const int n = length > 15 ? 15 : length;
+  int off = (v >> (15 - n)) + c.fb[n];
+  off = off < 0 ? 0 : (off > nperm - 1 ? nperm - 1 : off);
+  *lc = n;
+  return perm[off];
+}
+
+__device__ __forceinline__ void len_extra(int sym, int* eb, int* base) {
   const int ls = sym - 257;
-  const int eb = ls < 8 ? 0 : (ls == 28 ? 0 : (ls - 4) >> 2);
-  const int base = ls < 8 ? ls + 3 : (ls == 28 ? 258 : ((4 + (ls & 3)) << eb) + 3);
-  return (base << 16) | (eb << 8) | (T_BASE << 5);
+  *eb = ls < 8 ? 0 : (ls == 28 ? 0 : (ls >> 2) - 1);
+  *base = ls < 8 ? ls + 3 : (ls == 28 ? 258 : ((4 + (ls & 3)) << *eb) + 3);
 }
 
-// Two-level canonical table from lens[0..nsym), as the TPU kernel builds
-// it; returns bad ORed with 32 (over-subscribed) and 64 (subtables past
-// tab_words). Every lane runs the loop with the same values; table writes
-// are split across lanes, with a warp barrier before any lane reads them.
-__device__ int build_table(int32_t* tab, int tab_words, int root_bits,
-                           int nsym, const int32_t* lens, int kind, int bad,
-                           int lane) {
-  int cnt[16], nxt[16];
-  for (int l = 0; l < 16; ++l) cnt[l] = 0;
-  for (int i = 0; i < nsym; ++i) cnt[lens[i] & 15]++;
-  cnt[0] = 0;
-  int used = 0;
-  for (int l = 1; l < 16; ++l) used += cnt[l] << (15 - l);
-  if (used > (1 << 15)) bad |= 32;
-  const int root_size = 1 << root_bits;
-  const int max_sub = 15 - root_bits;
-  for (int k = lane; k < root_size; k += 32) tab[k] = 0;
+__device__ __forceinline__ void dist_extra(int dsym, int* deb, int* dbase) {
+  *deb = (dsym >> 1) - 1 > 0 ? (dsym >> 1) - 1 : 0;
+  *dbase = dsym < 4 ? dsym + 1 : ((2 + (dsym & 1)) << *deb) + 1;
+}
+
+// Whether the TPU kernel's entry for symbol sym is valid: litlen 286/287
+// and distance 30/31 have none.
+__device__ __forceinline__ bool has_entry(int kind, int sym) {
+  return kind == K_PRE || (kind == K_OF ? sym <= 29 : sym <= 285);
+}
+
+// The pre-decoded entry of symbol sym with a code of len bits, or 0.
+__device__ __forceinline__ uint32_t make_entry(int kind, int sym, int len) {
+  if (!has_entry(kind, sym)) return 0u;
+  if (kind == K_PRE) return (static_cast<uint32_t>(sym) << 16) | len;
+  if (kind == K_OF) {
+    int deb, dbase;
+    dist_extra(sym, &deb, &dbase);
+    return (static_cast<uint32_t>(dbase) << 16) | (deb << 8) | len;
+  }
+  if (sym < 256)
+    return (static_cast<uint32_t>(sym) << 16) | (E_LIT << 4) | len;
+  if (sym == 256) return (E_EOB << 4) | len;
+  int eb, base;
+  len_extra(sym, &eb, &base);
+  return (static_cast<uint32_t>(base) << 16) | (eb << 8) | (E_LEN << 4) | len;
+}
+
+// Fill a table from a valid canonical code, every slot by a canonical
+// decode of its bits, so the two agree slot for slot. Lanes take runs of
+// root slots; a root slot whose code is longer than `root` bits gets a
+// subtable of `sub` bits, numbered in slot order by a warp scan.
+__device__ __noinline__ void fill(uint32_t* tab, int root, int sub, int maxsub,
+                                  const Code& c, const uint16_t* perm,
+                                  int nperm, int kind, uint16_t* sub_prefix,
+                                  int lane) {
+  const int per = (1 << root) / 32;
+  int nlong = 0;
+  for (int k = 0; k < per; ++k) {
+    int len;
+    bool bad;
+    decode(c, perm, nperm, lane * per + k, &len, &bad);
+    nlong += !bad && len > root;
+  }
+  int incl = nlong;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += v;
+  }
+  const int total = __shfl_sync(FULL, incl, 31);
+  int next = incl - nlong;
+  for (int k = 0; k < per; ++k) {
+    const int idx = lane * per + k;
+    int len;
+    bool bad;
+    const int sym = decode(c, perm, nperm, idx, &len, &bad);
+    uint32_t e = 0u;
+    if (!bad && len <= root) {
+      e = make_entry(kind, sym, len);
+    } else if (!bad && next < maxsub) {
+      e = (static_cast<uint32_t>((1 << root) + (next << sub)) << 16) |
+          (E_PTR << 4);
+      sub_prefix[next++] = static_cast<uint16_t>(idx);
+    }
+    tab[idx] = e;
+  }
   __syncwarp();
-  // pre-pass: the longest excess over root_bits at each long prefix
-  int code = 0;
-  for (int l = 1; l < 16; ++l) nxt[l] = code = (code + cnt[l - 1]) << 1;
-  for (int i = 0; i < nsym; ++i) {
-    const int l = lens[i];
-    if (l > root_bits) {
-      const int prefix = rev15(nxt[l]++ << (15 - l)) & (root_size - 1);
-      if (lane == 0 && tab[prefix] < l - root_bits) tab[prefix] = l - root_bits;
-    } else if (l > 0) {
-      nxt[l]++;
+  const int nsub = total < maxsub ? total : maxsub;
+  for (int t = lane; t < (nsub << sub); t += 32) {
+    const uint32_t pk = sub_prefix[t >> sub] |
+                        ((t & ((1 << sub) - 1)) << root);
+    int len;
+    bool bad;
+    const int sym = decode(c, perm, nperm, pk, &len, &bad);
+    tab[(1 << root) + t] = bad ? 0u : make_entry(kind, sym, len);
+  }
+  __syncwarp();
+}
+
+// For a stream that is bad already, the TPU kernel fills a table without
+// subtables, yet allocates one of 2**bits entries for each code longer
+// than `root`, with bits read from its root slot as the fill finds it:
+// the length of the last shorter code (of lower symbol) whose replicas
+// cover the slot (0 for one with no entry), else the longest excess over
+// `root` of the codes under that slot; clipped to 1..15-root. Returns
+// whether the allocations pass tab_words (BAD_TABLE). Codes are numbered
+// canonically in symbol order and wrap, as the TPU fill's do.
+// `scratch` holds nsym + 2**root words (the litlen table's room, which a
+// bad stream no longer reads).
+__device__ __noinline__ bool overflows(const int32_t* lens, int nsym,
+                                       int root, int tab_words, int kind,
+                                       int32_t* scratch, int lane) {
+  const int root_size = 1 << root;
+  int32_t* rev = scratch;
+  int32_t* submax = scratch + nsym;
+  for (int k = lane; k < root_size; k += 32) submax[k] = 0;
+  __syncwarp();
+  if (lane == 0) {
+    int cnt[16], nxt[16];
+    for (int l = 0; l < 16; ++l) cnt[l] = 0;
+    for (int i = 0; i < nsym; ++i) cnt[lens[i]]++;
+    cnt[0] = 0;
+    int code = 0;
+    for (int l = 1; l < 16; ++l) nxt[l] = code = (code + cnt[l - 1]) << 1;
+    for (int i = 0; i < nsym; ++i) {
+      const int l = lens[i];
+      rev[i] = l > 0 ? rev15(nxt[l]++ << (15 - l)) : 0;
+      const int p = rev[i] & (root_size - 1);
+      if (l > root && submax[p] < l - root) submax[p] = l - root;
     }
   }
   __syncwarp();
-  code = 0;
-  for (int l = 1; l < 16; ++l) nxt[l] = code = (code + cnt[l - 1]) << 1;
-  int alloc = root_size;
-  for (int i = 0; i < nsym; ++i) {
+  int total = 0;
+  for (int i = lane; i < nsym; i += 32) {
     const int l = lens[i];
-    if (l == 0) continue;
-    const int rev = rev15(nxt[l]++ << (15 - l));
-    const int ent = entry(kind, i);
-    const int ent_ok = ent < 0 ? 0 : (ent | l);
-    if (l <= root_bits) {
-      const int step = 1 << l;
-      for (int k = lane; k < (root_size >> l); k += 32) {
-        const int at = rev + k * step;
-        tab[at < root_size - 1 ? at : root_size - 1] = ent_ok;
+    if (l <= root) continue;
+    const int p = rev[i] & (root_size - 1);
+    int cur = submax[p];
+    for (int j = i - 1; j >= 0; --j) {
+      const int lj = lens[j];
+      if (lj > 0 && lj <= root && (p & ((1 << lj) - 1)) == rev[j]) {
+        cur = has_entry(kind, j) ? lj : 0;
+        break;
       }
-      __syncwarp();
-      continue;
     }
-    const int prefix = rev & (root_size - 1);
-    const int cur = tab[prefix];
-    const bool is_ptr = ((cur >> 5) & 7) == T_SUB;
-    int sub_bits = is_ptr ? (cur >> 8) & 255 : cur & 31;
-    sub_bits = sub_bits < 1 ? 1 : (sub_bits > max_sub ? max_sub : sub_bits);
-    const int sub_base = is_ptr ? (cur >> 16) & 0xFFFF : alloc;
-    const int new_alloc = is_ptr ? alloc : alloc + (1 << sub_bits);
-    if (new_alloc > tab_words) bad |= 64;
-    __syncwarp();                       // every lane has read cur
-    if (!is_ptr && bad == 0) {
-      for (int k = lane; k < (1 << sub_bits); k += 32) {
-        const int at = sub_base + k;
-        tab[at < tab_words - 1 ? at : tab_words - 1] = 0;
-      }
-      __syncwarp();
-      if (lane == 0)
-        tab[prefix] = (sub_base << 16) | (sub_bits << 8) | (T_SUB << 5);
-    }
-    const int hi = rev >> root_bits;
-    const int step = 1 << (l - root_bits);
-    const int nrep = bad != 0 ? 0 : (1 << sub_bits) >> (l - root_bits);
-    for (int k = lane; k < nrep; k += 32) {
-      const int at = sub_base + hi + k * step;
-      tab[at < tab_words - 1 ? at : tab_words - 1] = ent_ok;
-    }
-    __syncwarp();
-    alloc = new_alloc;
+    const int bits = cur < 1 ? 1 : (cur > 15 - root ? 15 - root : cur);
+    total += 1 << bits;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) total += __shfl_xor_sync(FULL, total, o);
+  __syncwarp();
+  return root_size + total > tab_words;
+}
+
+// The body's tables from lens (litlen 0..287, distance 288..317).
+__device__ int build_body(Smem& s, int bad, int lane) {
+  int32_t* scratch = reinterpret_cast<int32_t*>(s.ll);
+  if (build(s.lens, 288, 288, s.c, s.perm, lane)) bad |= BAD_OVERSUB;
+  if (bad != 0) {
+    if (overflows(s.lens, 288, LL_ROOT, JAX_LL_WORDS, K_LL, scratch, lane))
+      bad |= BAD_TABLE;
+  } else {
+    fill(s.ll, LL_ROOT, LL_SUB, LL_MAXSUB, s.c, s.perm, 288, K_LL,
+         s.sub_prefix, lane);
+  }
+  if (build(s.lens + 288, 30, 32, s.c, s.perm, lane)) bad |= BAD_OVERSUB;
+  if (bad != 0) {
+    if (overflows(s.lens + 288, 30, OF_ROOT, JAX_OF_WORDS, K_OF, scratch,
+                  lane))
+      bad |= BAD_TABLE;
+  } else {
+    fill(s.of, OF_ROOT, OF_SUB, OF_MAXSUB, s.c, s.perm, 32, K_OF,
+         s.sub_prefix, lane);
   }
   return bad;
 }
 
-// Resolve a root entry through its subtable pointer, if it is one.
-__device__ __forceinline__ int lookup(const int32_t* tab, int tab_words,
-                                      int root_bits, uint32_t pk) {
-  const int e = tab[pk & ((1u << root_bits) - 1)];
-  if (((e >> 5) & 7) != T_SUB) return e;
-  const int at = ((e >> 16) & 0xFFFF) + mask_bits(pk >> root_bits, (e >> 8) & 255);
-  return tab[at < tab_words - 1 ? at : tab_words - 1];
+// A table's entry for the peeked bits pk, through its subtable if the
+// root entry points to one; `tab` is the table's shared-memory address.
+__device__ __forceinline__ uint32_t lds(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
 }
 
-__device__ int parse_dynamic(Smem& s, Reader& r, int in_bits, int bad,
+__device__ __forceinline__ uint32_t lookup(uint32_t tab, int root, int sub,
+                                           uint32_t pk) {
+  uint32_t e = lds(tab + 4u * (pk & mask(root)));
+  if (((e >> 4) & 3u) == E_PTR)
+    e = lds(tab + 4u * ((e >> 16) + ((pk >> root) & mask(sub))));
+  return e;
+}
+
+using Reader = sd::Reader<true>;
+
+__device__ int parse_dynamic(Smem& s, Reader& r, uint32_t in_bits, int bad,
                              int lane) {
   const uint32_t pk = r.peek();
   const int num_ll = (pk & 31) + 257;
   const int num_of = ((pk >> 5) & 31) + 1;
   const int ne = ((pk >> 10) & 15) + 4;
-  r.skip(14);
-  if (num_ll > 286 || num_of > 30) bad |= 8;
-  for (int k = lane; k < 19; k += 32) s.lens[k] = 0;
+  r.consume(14);
+  if (num_ll > 286 || num_of > 30) bad |= BAD_COUNTS;
+  if (lane < 19) s.lens[lane] = 0;
   __syncwarp();
   for (int k = 0; k < ne; ++k) {
     const int v = r.peek() & 7;
     if (lane == 0) s.lens[kOrder[k]] = v;
-    r.skip(3);
+    r.consume(3);
   }
   __syncwarp();
-  if (r.bp > in_bits) bad |= 16;
-  bad = build_table(s.pre, PRE_WORDS, 7, 19, s.lens, PRE, bad, lane);
+  if (r.abit > in_bits) bad |= BAD_PRE_END;
+  if (build(s.lens, 19, 19, s.c, s.perm, lane)) bad |= BAD_OVERSUB;
+  if (bad == 0)
+    fill(s.pre, PRE_ROOT, 0, 0, s.c, s.perm, 19, K_PRE, s.sub_prefix, lane);
 
-  // code lengths, run-length coded through the precode
+  // code lengths, run-length coded through the precode; every lane
+  // writes a literal length (the same value to the same place), the
+  // lanes split a repeat, and the previous length is kept in a register
   const int tot = num_ll + num_of;
-  int i = 0;
-  while (i < tot && bad == 0 && r.bp <= in_bits) {
-    const int e = s.pre[r.peek() & 127];
-    const int l = e & 31;
-    if (l == 0) bad |= 128;
-    r.skip(l);
-    const int sym = (e >> 16) & 0xFFFF;
+  int i = 0, prev = 0;
+  while (i < tot && bad == 0 && r.abit <= in_bits) {
     const uint32_t pk2 = r.peek();
+    const uint32_t e = s.pre[pk2 & mask(PRE_ROOT)];
+    const int l = e & 15;
+    if (l == 0) bad |= BAD_PRE_CODE;
+    const int sym = e >> 16;
     if (sym <= 15) {
-      if (lane == 0) s.lens[i < LENS_WORDS - 1 ? i : LENS_WORDS - 1] = sym;
-      __syncwarp();
+      r.consume(l);
+      s.lens[i] = sym;
+      prev = sym;
       ++i;
       continue;
     }
     // 16: repeat the previous length 3-6 | 17: zeros 3-10 | 18: zeros 11-138
     const int ebits = sym == 16 ? 2 : (sym == 17 ? 3 : 7);
-    const int rep = (sym == 18 ? 11 : 3) + mask_bits(pk2, ebits);
-    r.skip(ebits);
-    const int prev = s.lens[i - 1 > 0 ? i - 1 : 0];
+    const int rep = (sym == 18 ? 11 : 3) + ((pk2 >> l) & mask(ebits));
+    r.consume(l + ebits);
     const int val = sym == 16 ? prev : 0;
-    if ((sym == 16 && i == 0) || i + rep > tot) bad |= 256;
-    __syncwarp();                       // every lane has read prev
-    for (int k = lane; k < (bad != 0 ? 0 : rep); k += 32) {
-      const int at = i + k;
-      s.lens[at < LENS_WORDS - 1 ? at : LENS_WORDS - 1] = val;
-    }
-    __syncwarp();
+    if ((sym == 16 && i == 0) || i + rep > tot) bad |= BAD_REPEAT;
+    if (bad == 0)
+      for (int k = lane; k < rep; k += 32) s.lens[i + k] = val;
+    prev = val;
     i += rep;
   }
-  if (i != tot) bad |= 512;
-  if (r.bp > in_bits) bad |= 1024;
-  // offset lengths to 288.., litlen lengths zeroed from num_ll to 288
+  __syncwarp();
+  if (i != tot) bad |= BAD_LENS_COUNT;
+  if (r.abit > in_bits) bad |= BAD_LENS_END;
+  // distance lengths to 288.., litlen lengths zeroed from num_ll to 288
   if (lane == 0) {
     for (int k = 29; k >= 0; --k)
       s.lens[288 + k] = k < num_of ? s.lens[num_ll + k] : 0;
     for (int k = num_ll; k < 288; ++k) s.lens[k] = 0;
   }
   __syncwarp();
-  if (s.lens[256] == 0) bad |= 2048;
-  bad = build_table(s.ll, LL_WORDS, 10, 288, s.lens, LITLEN, bad, lane);
-  return build_table(s.of, OF_WORDS, 8, 30, s.lens + 288, OFFSET, bad, lane);
+  if (s.lens[256] == 0) bad |= BAD_NO_EOB;
+  return build_body(s, bad, lane);
 }
 
 __device__ int load_static(Smem& s, int bad, int lane) {
   for (int k = lane; k < 318; k += 32)
     s.lens[k] = k >= 288 ? 5 : (k < 144 ? 8 : (k < 256 ? 9 : (k < 280 ? 7 : 8)));
   __syncwarp();
-  bad = build_table(s.ll, LL_WORDS, 10, 288, s.lens, LITLEN, bad, lane);
-  return build_table(s.of, OF_WORDS, 8, 30, s.lens + 288, OFFSET, bad, lane);
+  return build_body(s, bad, lane);
 }
 
-__global__ void __launch_bounds__(32)
+extern __shared__ __align__(16) unsigned char smem_raw[];
+
+__global__ void __launch_bounds__(32, 1)
 inflate_v2_kernel(const int32_t* __restrict__ lens,
-                  const int32_t* __restrict__ words, int nstreams,
+                  const int32_t* __restrict__ words,
                   int32_t* __restrict__ out) {
-  __shared__ Smem s;
+  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   const int sid = blockIdx.x;
   const int lane = threadIdx.x;
-  if (sid >= nstreams) return;
-  const uint8_t* row =
-      reinterpret_cast<const uint8_t*>(words + static_cast<int64_t>(sid) * IN_WORDS);
-  int32_t* orow = out + static_cast<int64_t>(sid) * OUT_WORDS;
-  uint8_t* ob = reinterpret_cast<uint8_t*>(orow);
   const int in_len = lens[sid];
-  const int in_bits = in_len * 8;
+  const uint32_t in_bits = 8u * in_len;
+  sd::stage_row(s.in, s.out, words + static_cast<int64_t>(sid) * IN_WORDS,
+                &s.bar, lane);
   for (int k = lane; k < LENS_WORDS; k += 32) s.lens[k] = 0;
   __syncwarp();
 
+  uint8_t* ob = reinterpret_cast<uint8_t*>(s.out);
+  const uint8_t* ib = reinterpret_cast<const uint8_t*>(s.in);
   Reader r;
-  r.row = row;
+  r.in = s.in;
   r.seek(0);
   int bad = 0, op = 0, done = 0;
-  while (done == 0 && bad == 0 && r.bp + 3 <= in_bits) {
+  while (done == 0 && bad == 0 && r.abit + 3 <= in_bits) {
     const int hdr = r.peek() & 7;
-    r.skip(3);
+    r.consume(3);
     const int bfinal = hdr & 1, btype = hdr >> 1;
-    if (btype == 3) bad |= 1;
     if (btype == 0) {                                 // stored block
-      r.skip((8 - (r.bp & 7)) & 7);
+      r.consume((8 - (r.abit & 7)) & 7);
       const uint32_t pk = r.peek();
       const int ln = pk & 0xFFFF, nlen = pk >> 16;
-      if (ln != (~nlen & 0xFFFF)) bad |= 2;
-      r.skip(32);
-      const int start = r.bp >> 3;
-      if (start + ln > in_len || op + ln > OUT_CAP) bad |= 4;
+      if (ln != (~nlen & 0xFFFF)) bad |= BAD_STORED_LEN;
+      r.consume(32);
+      const int start = r.abit >> 3;
+      if (start + ln > in_len || op + ln > OUT_CAP) bad |= BAD_STORED_END;
       const int n = bad != 0 ? 0 : ln;
-      for (int k = lane; k < n; k += 32) ob[op + k] = row[(start + k) & IN_MASK];
-      __syncwarp();
-      r.seek(r.bp + 8 * n);
+      for (int k = lane; k < n; k += 32) ob[op + k] = ib[(start + k) & IN_MASK];
+      r.seek(r.abit + 8 * n);
       op += n;
+    } else if (btype == 3) {
+      bad |= BAD_BTYPE | BAD_BLOCK_END;
     } else {
       bad = btype == 2 ? parse_dynamic(s, r, in_bits, bad, lane)
                        : load_static(s, bad, lane);
-      int eob = 0;
-      while (eob == 0 && bad == 0 && r.bp <= in_bits) {   // block body
+      const uint32_t ll = sd::smem_addr(s.ll), of = sd::smem_addr(s.of);
+      bool eob = false;
+      while (bad == 0 && r.abit <= in_bits) {         // block body
         const uint32_t pk = r.peek();
-        const int e = lookup(s.ll, LL_WORDS, 10, pk);
-        const int l = e & 31, ty = (e >> 5) & 7;
-        if (l == 0) bad |= 4096;
-        r.skip(l);
-        if (ty == T_LIT) {
-          if (op >= OUT_CAP) bad |= 32768;
-          if (lane == 0) ob[op < OUT_CAP - 1 ? op : OUT_CAP - 1] = (e >> 16) & 0xFF;
+        uint32_t e = lds(ll + 4u * (pk & mask(LL_ROOT)));
+        if ((e & 0x3Fu) - 1u < 15u && op < OUT_CAP) {  // a literal that fits
+          r.consume(e & 15);
+          ob[op++] = static_cast<uint8_t>(e >> 16);
+          continue;
+        }
+        if (((e >> 4) & 3) == E_PTR)
+          e = lds(ll + 4u * ((e >> 16) + ((pk >> LL_ROOT) & mask(LL_SUB))));
+        const uint32_t l = e & 15, ty = (e >> 4) & 3;
+        if (ty == E_EOB) {
+          r.consume(l);
+          eob = true;
+          break;
+        }
+        if (ty == E_LIT) {   // in a subtable, past OUT_CAP, or no code here
+          if (l == 0) bad |= BAD_LL_CODE;
+          if (op >= OUT_CAP) bad |= BAD_OUT_CAP;
+          r.consume(l);
+          ob[op < OUT_CAP - 1 ? op : OUT_CAP - 1] = static_cast<uint8_t>(e >> 16);
           ++op;
-        } else if (ty == T_EOB) {
-          eob = 1;
-        } else {
-          const int ebits = (e >> 8) & 255;
-          const int length = ((e >> 16) & 0xFFFF) + mask_bits(r.peek(), ebits);
-          r.skip(ebits);
-          const int oe = lookup(s.of, OF_WORDS, 8, r.peek());
-          const int ol = oe & 31;
-          if (ol == 0 || ((oe >> 5) & 7) != T_BASE) bad |= 8192;
-          r.skip(ol);
-          const int oeb = (oe >> 8) & 255;
-          const int off = ((oe >> 16) & 0xFFFF) + mask_bits(r.peek(), oeb);
-          r.skip(oeb);
-          if (off > op) bad |= 16384;
-          if (op + length > OUT_CAP - 4) bad |= 32768;
-          if (r.bp > in_bits) bad |= 65536;
-          if (bad == 0) {
-            // every source byte lies before op, so the lanes copy at once:
-            // byte k of the match is byte op - off + k % off
-            __syncwarp();
-            for (int k = lane; k < length; k += 32) ob[op + k] = ob[op - off + k % off];
-            __syncwarp();
-            op += length;
-          }
+          continue;
+        }
+        const uint32_t eb = (e >> 8) & 31;
+        const int length = static_cast<int>((e >> 16) + ((pk >> l) & mask(eb)));
+        r.consume(l + eb);
+        const uint32_t pk2 = r.peek();
+        const uint32_t d = lookup(of, OF_ROOT, OF_SUB, pk2);
+        const uint32_t dl = d & 15, deb = (d >> 8) & 31;
+        if (dl == 0) bad |= BAD_OF_CODE;
+        const int dist = static_cast<int>((d >> 16) + ((pk2 >> dl) & mask(deb)));
+        r.consume(dl + deb);
+        if (dist > op) bad |= BAD_DIST;
+        if (op + length > OUT_CAP - 4) bad |= BAD_OUT_CAP;
+        if (r.abit > in_bits) bad |= BAD_MATCH_END;
+        if (bad == 0) {
+          __syncwarp();                  // every byte before op is visible
+          sd::lz_copy(ob, op, dist, length, lane);
+          op += length;
         }
       }
-      if (eob == 0) bad |= 131072;
+      if (!eob) bad |= BAD_BLOCK_END;
     }
     done = bad != 0 ? 1 : bfinal;
   }
-  if (done == 0) bad |= 262144;
+  if (done == 0) bad |= BAD_STREAM_END;
+  __syncwarp();
   if (lane == 0) {
-    orow[OUT_WORDS - 2] = bad;
-    orow[OUT_WORDS - 1] = bad != 0 ? -1 : op;
+    s.out[OUT_WORDS - 2] = bad;
+    s.out[OUT_WORDS - 1] = bad != 0 ? -1 : op;
   }
+  sd::write_back(out + static_cast<int64_t>(sid) * OUT_WORDS, s.out, lane);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). lens (nstreams,) and words
-// (nstreams, 16384) int32; out (nstreams, 16512) int32, zeroed by the
-// caller. Launches on `stream` and returns cudaGetLastError() as an int
-// (0 on success). No synchronisation.
+// (nstreams, 16384) int32, words 16-byte aligned; out (nstreams, 16512)
+// int32, every word of which the kernel writes. Launches on `stream`
+// and returns the first CUDA error as an int (0 on success): that of
+// raising the kernel's shared-memory limit, of a misaligned `words`
+// (cudaErrorInvalidValue), or of the launch. No synchronisation.
 extern "C" int ldrsx_inflate_v2(const void* lens, const void* words,
                                 int nstreams, void* out, void* stream) {
   if (nstreams <= 0) return 0;
-  inflate_v2_kernel<<<nstreams, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (reinterpret_cast<uintptr_t>(words) & 15)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = static_cast<int>(sizeof(Smem));
+  const cudaError_t rc = cudaFuncSetAttribute(
+      inflate_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  inflate_v2_kernel<<<nstreams, 32, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(lens), static_cast<const int32_t*>(words),
-      nstreams, static_cast<int32_t*>(out));
+      static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C entry point. It is compiled with nvcc
 for sm_90a into a shared library under `build/kernels/` at the root of
-the checkout (listed in .gitignore), named by a hash of its source and
-flags so that an edited source is rebuilt, and loaded with ctypes. The
+the checkout (listed in .gitignore), named by a hash of its source, the
+`csrc/*.cuh` headers it includes and the flags, so that an edited source
+or header is rebuilt, and loaded with ctypes. The
 build happens at first use, never at import: the first `load` compiles
 every missing kernel of `csrc/`, one nvcc each, all started together.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,10 +48,29 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list[str]:
+    """`csrc/<name>.cu` and every header of `csrc/` it includes, directly
+    or through another header, in the order they are first met."""
+    found = [os.path.join(CSRC, name + ".cu")]
+    for path in found:
+        with open(path, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                dep = os.path.join(CSRC, inc.decode())
+                if os.path.exists(dep) and dep not in found:
+                    found.append(dep)
+    return found
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the headers it
+    includes and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

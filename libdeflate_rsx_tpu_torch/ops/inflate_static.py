@@ -2,7 +2,8 @@
 
 Port of `libdeflate_rsx_tpu/ops/pallas/inflate_static.py`. The Pallas
 kernel `_kernel` becomes the CUDA kernel in `csrc/inflate_static.cu`, one
-thread per stream; `inflate_static_plain` beside it is the plain PyTorch
+stream per block of one warp, decoding out of shared memory;
+`inflate_static_plain` beside it is the plain PyTorch
 version of the same function, which decodes all streams of a batch in
 lockstep with tensor ops over the batch dimension. `inflate_static`
 takes the kernel for a CUDA tensor and the plain version for a CPU
@@ -64,7 +65,8 @@ def inflate_static(lens: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
         return inflate_static_plain(lens, words)
     fn = _kernel_lib()
     b = lens.shape[0]
-    out = torch.zeros((b, OUT_WORDS), dtype=torch.int32, device=dev)
+    # the kernel writes every word of its rows, zeros and count included
+    out = torch.empty((b, OUT_WORDS), dtype=torch.int32, device=dev)
     if b == 0:
         return out
     with torch.cuda.device(dev):
@@ -72,7 +74,9 @@ def inflate_static(lens: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
-            f"inflate_static kernel launch failed: CUDA error {rc}")
+            f"inflate_static kernel launch failed: CUDA error {rc} (a "
+            "refused shared-memory size or launch, or words not 16-byte "
+            "aligned)")
     LAUNCHES += 1
     return out
 

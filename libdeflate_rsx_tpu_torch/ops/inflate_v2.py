@@ -2,7 +2,7 @@
 
 Port of `libdeflate_rsx_tpu/ops/pallas/inflate_v2.py`. The Pallas kernel
 `_kernel` becomes the CUDA kernel in `csrc/inflate_v2.cu`, one stream
-per block; `inflate_v2_plain` beside it is the plain PyTorch version of
+per block of one warp, decoding out of shared memory; `inflate_v2_plain` beside it is the plain PyTorch version of
 the same function, which decodes all streams of a batch in lockstep with
 tensor ops over the batch dimension. `inflate_v2` takes the kernel for a
 CUDA tensor and the plain version for a CPU tensor, and nothing else.
@@ -139,14 +139,17 @@ def inflate_v2(lens: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
         return inflate_v2_plain(lens, words)
     fn = _kernel_lib()
     b = lens.shape[0]
-    out = torch.zeros((b, OUT_WORDS), dtype=torch.int32, device=dev)
+    # the kernel writes every word of its rows, zeros and trailer included
+    out = torch.empty((b, OUT_WORDS), dtype=torch.int32, device=dev)
     if b == 0:
         return out
     with torch.cuda.device(dev):
         rc = fn(lens.data_ptr(), words.data_ptr(), b, out.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"inflate_v2 kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"inflate_v2 kernel launch failed: CUDA error {rc}"
+                           " (a refused shared-memory size or launch, or "
+                           "words not 16-byte aligned)")
     LAUNCHES += 1
     return out
 

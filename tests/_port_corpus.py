@@ -61,3 +61,242 @@ def mutated_streams(n: int, seed: int = 5) -> list[bytes]:
             s[bit >> 3] ^= 1 << (bit & 7)
         out.append(bytes(s))
     return out
+
+
+# ------------------------------------------- hand-built edge-case streams
+# Rows and streams at the edges of the stream kernels' staging and copies
+# (a row filled to its last byte, bits read past it, bytes past a
+# stream's end, long and short distances, subtables of 15-bit codes),
+# short or stored so that the plain versions decode them in few steps.
+
+IN_CAP = 65536          # bytes of a stream kernel's input row
+_LEN_BASE = [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35,
+             43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258]
+_LEN_EB = [0] * 8 + [k for k in range(1, 6) for _ in range(4)] + [0]
+_DIST_BASE = [1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193,
+              257, 385, 513, 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193,
+              12289, 16385, 24577]
+_DIST_EB = [max(0, k // 2 - 1) for k in range(30)]
+
+
+def _sym(base, value):
+    """The symbol of a length or distance and its extra-bit value."""
+    s = max(k for k, b in enumerate(base) if b <= value)
+    return s, value - base[s]
+
+
+class BitWriter:
+    """DEFLATE's bit order: fields LSB first, Huffman codes MSB first."""
+
+    def __init__(self):
+        self.acc, self.n, self.out = 0, 0, bytearray()
+
+    def bits(self, v, n):
+        self.acc |= v << self.n
+        self.n += n
+        while self.n >= 8:
+            self.out.append(self.acc & 255)
+            self.acc >>= 8
+            self.n -= 8
+
+    def code(self, c, n):
+        c &= (1 << n) - 1           # an over-subscribed code's codes wrap
+        self.bits(int(format(c, f"0{n}b")[::-1], 2) if n else 0, n)
+
+    def align(self):
+        if self.n % 8:
+            self.bits(0, 8 - self.n % 8)
+
+    def data(self) -> bytes:
+        return bytes(self.out) + (bytes([self.acc]) if self.n else b"")
+
+
+def canonical(lens):
+    """Canonical code of each symbol from its length (0: none)."""
+    nxt, code = {}, 0
+    for l in range(1, 16):
+        code = (code + sum(1 for x in lens if x == l - 1 and x)) << 1
+        nxt[l] = code
+    out = []
+    for x in lens:
+        out.append(nxt[x] if x else 0)
+        if x:
+            nxt[x] += 1
+    return out
+
+
+def _static_ll(s):
+    if s < 144:
+        return 0x30 + s, 8
+    if s < 256:
+        return 0x190 + s - 144, 9
+    if s < 280:
+        return s - 256, 7
+    return 0xC0 + s - 280, 8
+
+
+def _tokens(w, tokens, ll, of):
+    """Literals (int) and matches (length, dist) through the codes ll(sym)
+    and of(sym) -> (code, bits), then end-of-block."""
+    for t in tokens:
+        if isinstance(t, int):
+            w.code(*ll(t))
+            continue
+        ls, lx = _sym(_LEN_BASE, t[0])
+        if t[0] == 258:
+            ls, lx = 28, 0
+        w.code(*ll(257 + ls))
+        w.bits(lx, _LEN_EB[ls])
+        ds, dx = _sym(_DIST_BASE, t[1])
+        w.code(*of(ds))
+        w.bits(dx, _DIST_EB[ds])
+    w.code(*ll(256))
+
+
+def stored_block(w, data, final, length=None):
+    n = len(data) if length is None else length
+    w.bits(final, 1)
+    w.bits(0, 2)
+    w.align()
+    w.bits(n, 16)
+    w.bits(n ^ 0xFFFF, 16)
+    w.out += data
+
+
+def static_block(w, tokens, final):
+    w.bits(final, 1)
+    w.bits(1, 2)
+    _tokens(w, tokens, _static_ll, lambda s: (s, 5))
+
+
+def dynamic_block(w, tokens, final, ll_lens, of_lens):
+    """A dynamic block with all 286 litlen and 30 distance lengths sent
+    through a precode of sixteen 4-bit codes (symbols 0-15, no runs)."""
+    w.bits(final, 1)
+    w.bits(2, 2)
+    w.bits(286 - 257, 5)
+    w.bits(30 - 1, 5)
+    w.bits(19 - 4, 4)
+    for s in (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1,
+              15):
+        w.bits(0 if s > 15 else 4, 3)
+    for x in list(ll_lens) + list(of_lens):
+        w.code(x, 4)
+    llc, ofc = canonical(ll_lens), canonical(of_lens)
+    _tokens(w, tokens, lambda s: (llc[s], ll_lens[s]),
+            lambda s: (ofc[s], of_lens[s]))
+
+
+def _long_code_block(r, n):
+    """A dynamic block whose litlen code has 12-, 14- and 15-bit codes
+    (subtables under root slots) and whose distance code has 14- and
+    15-bit codes, with a body that uses them after n bytes of history."""
+    short = [ord(c) for c in "et aoinsr"]           # lengths 1..9
+    long_lits = [k for k in range(256) if k not in short][:24]
+    ll = [0] * 286
+    for k, s in enumerate(short):
+        ll[s] = k + 1
+    # the rest 2**-9 of the code space: 4 codes of 12, 8 of 14, 16 of 15
+    rest = long_lits + [256, 257, 265, 284]
+    for k, s in enumerate(rest):
+        ll[s] = 12 if k < 4 else (14 if k < 12 else 15)
+    of = [0] * 30
+    for k, s in enumerate([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 20]):
+        of[s] = k + 1
+    of[29], of[16] = 15, 15
+    dists = [1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 1025, 257, 24577]
+    toks = []
+    for _ in range(600):
+        if r.random() < 0.6 or n < 3:
+            toks.append(r.choice(short + rest[:24]))
+            n += 1
+        else:
+            d = r.choice([x for x in dists if x <= n])
+            ln = r.choice([3, 11, 12, 227, 257])
+            toks.append((ln, d))
+            n += ln
+    return toks, ll, of
+
+
+def edge_cases():
+    """(name, stream, tail): each stream's row holds the stream and then
+    `tail` (bytes that lie past the stream's end), zeros after it."""
+    r = random.Random(29)
+    rnd = lambda n: bytes(r.randrange(256) for _ in range(n))  # noqa: E731
+    cases = []
+    # a stored stream that fills the row to its last byte, and a stored
+    # block of 65,535 bytes cut at the row's end
+    w = BitWriter()
+    stored_block(w, rnd(IN_CAP - 5), 1)
+    cases.append(("stored-full-row", w.data(), b""))
+    w = BitWriter()
+    stored_block(w, rnd(IN_CAP - 5), 1, length=65535)
+    cases.append(("stored-65535-cut", w.data(), b""))
+    w = BitWriter()
+    stored_block(w, rnd(IN_CAP - 15), 0)
+    stored_block(w, rnd(5), 1)
+    cases.append(("stored-two-blocks-full-row", w.data(), b""))
+    # a row filled to its last byte by a static block that goes on past
+    # it: the last symbols read bits past the row
+    w = BitWriter()
+    stored_block(w, rnd(65000), 0)
+    static_block(w, [r.randrange(144, 256) for _ in range(700)], 1)
+    cases.append(("static-past-row", w.data()[:IN_CAP], b""))
+    # matches of 258 at distance 32,768 after a stored block
+    w = BitWriter()
+    stored_block(w, rnd(32768), 0)
+    static_block(w, [(258, 32768)] * 100, 1)
+    cases.append(("match-258-at-32768", w.data(), b""))
+    # distances 31, 32, 33 and 64 at lengths around them
+    toks = [(ln, d) for d in (31, 32, 33, 64)
+            for ln in (3, 8, 30, 31, 32, 33, 34, 63, 64, 65, 100, 258)]
+    w = BitWriter()
+    stored_block(w, rnd(64), 0)
+    static_block(w, toks + [65, 66], 1)
+    cases.append(("distances-31-32-33-64", w.data(), b""))
+    # 15-bit litlen and distance codes
+    w = BitWriter()
+    stored_block(w, rnd(30000), 0)
+    toks, ll, of = _long_code_block(r, 30000)
+    dynamic_block(w, toks, 1, ll, of)
+    cases.append(("dynamic-15-bit-codes", w.data(), b""))
+    w = BitWriter()
+    toks, ll, of = _long_code_block(r, 0)
+    dynamic_block(w, toks, 1, ll, of)
+    long_codes = w.data()
+    # over-subscribed codes: the TPU kernel's table fill then allocates a
+    # subtable for each long code, sized from the slot as it finds it (a
+    # shorter code covering it, or the longest excess under it), and may
+    # pass its table (BAD_TABLE)
+    for name, ll, of in (
+            ("oversub-short-first", [5] * 33 + [15] * 250 + [0] * 3, [5] * 30),
+            ("oversub-long-first", [15] * 250 + [5] * 33 + [0] * 3, [15] * 30),
+            ("oversub-fits", [1, 1, 1] + [0] * 253 + [15] * 4 + [0] * 26,
+             [5] * 30)):
+        w = BitWriter()
+        dynamic_block(w, [], 1, ll, of)
+        cases.append((name, w.data(), b""))
+    # bytes past the stream's end: whole, cut short, cut inside the
+    # dynamic header
+    text = make_corpus("text", 4000, seed=31)
+    fixed = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
+    fz = fixed.compress(text) + fixed.flush()
+    for name, z in (("dynamic", raw_z(text)), ("static", fz),
+                    ("long-codes", long_codes)):
+        tail = b"\xff" * 8 + rnd(120)
+        cases += [(f"{name}-tail", z, tail),
+                  (f"{name}-cut-tail", z[:len(z) // 2], tail),
+                  (f"{name}-header-cut-tail", z[:9], tail)]
+    return cases
+
+
+def edge_rows(cases):
+    """(lens (B,) int32, words (B, IN_CAP // 4) int32) numpy arrays of
+    edge_cases(): each row the stream, its tail, then zeros."""
+    import numpy as np
+    lens = np.array([len(z) for _, z, _ in cases], np.int32)
+    buf = np.zeros((len(cases), IN_CAP), np.uint8)
+    for i, (_, z, tail) in enumerate(cases):
+        row = (z + tail)[:IN_CAP]
+        buf[i, :len(row)] = np.frombuffer(row, np.uint8)
+    return lens, buf.view("<i4")

@@ -13,7 +13,7 @@ import zlib
 import pytest
 import torch
 
-from _port_corpus import make_corpus, mutated_streams
+from _port_corpus import edge_cases, edge_rows, make_corpus, mutated_streams
 
 pytestmark = pytest.mark.cuda
 
@@ -125,17 +125,29 @@ def _stream_cases():
                        fixed(bytes(66100)), b""]
 
 
+def _edge_batch(card):
+    lens, words = edge_rows(edge_cases())
+    return torch.from_numpy(lens).to(card), torch.from_numpy(words).to(card)
+
+
+@pytest.mark.parametrize("batch", ["cases", "one", "edge"])
 @pytest.mark.parametrize("name", ["inflate_v2", "inflate_static"])
-def test_stream_kernel_equals_plain_on_card(card, name):
+def test_stream_kernel_equals_plain_on_card(card, name, batch):
     """Every output word equal (bytes, flags, count), and the launch
-    counted."""
+    counted: the mixed cases, a batch of 1, and the hand-built edge rows
+    (rows filled to their last byte, bits read past the row, bytes past a
+    stream's end, distances 31-33, 64 and 32,768, 15-bit codes)."""
     import importlib
 
     from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
 
     mod = importlib.import_module("libdeflate_rsx_tpu_torch.ops." + name)
     kernel, plain = getattr(mod, name), getattr(mod, name + "_plain")
-    lens, words = v2.pack(_stream_cases(), card)
+    if batch == "edge":
+        lens, words = _edge_batch(card)
+    else:
+        cases = _stream_cases()
+        lens, words = v2.pack(cases[10:11] if batch == "one" else cases, card)
     before = mod.LAUNCHES
     out_k = kernel(lens, words)
     assert mod.LAUNCHES == before + 1
@@ -144,6 +156,33 @@ def test_stream_kernel_equals_plain_on_card(card, name):
     assert torch.equal(out_k, out_p)
     empty = kernel(*v2.pack([], card))
     assert empty.shape == (0, v2.OUT_WORDS) and mod.LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("name", ["inflate_v2", "inflate_static"])
+def test_stream_kernel_writes_every_output_word(card, name):
+    """The wrapper's output comes from torch.empty: on memory that held
+    other bytes, every row still reads 0 past its count and its trailer
+    words (inflate_v2: flags and count; inflate_static: count) are the
+    plain version's."""
+    import importlib
+
+    from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
+
+    mod = importlib.import_module("libdeflate_rsx_tpu_torch.ops." + name)
+    lens, words = _edge_batch(card)
+    want = getattr(mod, name + "_plain")(lens, words)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        junk = torch.full((len(lens), v2.OUT_WORDS), -0x5A5A5A5B,
+                          dtype=torch.int32, device=card)
+        del junk                          # the caching allocator keeps it
+        out = getattr(mod, name)(lens, words)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    cap = (v2.OUT_WORDS - (2 if name == "inflate_v2" else 1)) * 4
+    for row in out.cpu().numpy():
+        if row[-1] >= 0:
+            assert not row.view("<u1")[row[-1]:cap].any()
 
 
 def test_small_batch_goes_through_inflate_v2_on_card(card):

@@ -57,14 +57,17 @@ def test_import_leaves_jax_out():
     assert r.stdout.startswith("ok")
 
 
+PROBES = ["scripts/pass1_probe.py", "scripts/stream_probe.py"]
+
+
 @pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py",
-                                            "tests/_port_corpus.py"])
+                                            "tests/_port_corpus.py"] + PROBES)
 def test_no_jax_import_in_sources(path):
     text = (ROOT / path).read_text()
     assert not _JAX_IMPORT.search(text), path
 
 
-@pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py"])
+@pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py"] + PROBES)
 def test_no_jax_package_import_in_sources(path):
     text = (ROOT / path).read_text()
     assert not _REF_IMPORT.search(text), path

@@ -14,6 +14,7 @@ from libdeflate_rsx_tpu.ops.pallas import inflate_static as jst
 from libdeflate_rsx_tpu_torch.ops import inflate_device_static
 from libdeflate_rsx_tpu_torch.ops import inflate_static as st
 from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
+from tests._port_corpus import edge_cases, edge_rows
 from tests.conftest import make_corpus
 
 torch.set_num_threads(2)
@@ -82,6 +83,38 @@ def test_plain_equals_jax_kernel(words, k):
         assert n < 0
     elif want is not ...:
         assert pw.view("<u1")[:n].tobytes() == want
+
+
+EDGE = edge_cases()
+
+
+@pytest.fixture(scope="module")
+def edge_words():
+    """(JAX out words, plain out words) of the hand-built edge rows."""
+    import jax.numpy as jnp
+    lens, wds = edge_rows(EDGE)
+    jw = jst._jit_inflate()(jnp.asarray(lens), jnp.asarray(wds))
+    pw = st.inflate_static(torch.from_numpy(lens), torch.from_numpy(wds.copy()))
+    return np.asarray(jw).reshape(len(EDGE), st.OUT_WORDS), pw.numpy()
+
+
+@pytest.mark.parametrize("k", range(len(EDGE)), ids=[n for n, _, _ in EDGE])
+def test_plain_equals_jax_kernel_on_edge_rows(edge_words, k):
+    """Rows filled to their last byte, bits read past the row (zero bits
+    there), bytes past a stream's end (never read), matches at distances
+    31-33, 64 and 32,768: the count and the decoded bytes equal."""
+    jw, pw = edge_words[0][k], edge_words[1][k]
+    name, stream, _ = EDGE[k]
+    n = int(jw[-1])
+    assert int(pw[-1]) == n
+    assert pw.view("<u1")[:max(n, 0)].tobytes() \
+        == jw.view("<u1")[:max(n, 0)].tobytes()
+    if n >= 0:
+        assert not pw.view("<u1")[n:st.OUT_CAP].any()
+    dynamic = name.startswith(("dynamic", "long-codes", "oversub"))
+    if "cut" not in name and not dynamic and name != "static-past-row":
+        assert pw.view("<u1")[:n].tobytes() == zlib.decompress(stream, -15)
+    assert (n < 0) == (dynamic or name == "stored-65535-cut")
 
 
 def test_dynamic_blocks_are_bad(words):

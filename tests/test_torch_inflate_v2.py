@@ -25,7 +25,7 @@ from libdeflate_rsx_tpu_torch import BatchDecompressor
 from libdeflate_rsx_tpu_torch.batch import SMALL_BATCH
 from libdeflate_rsx_tpu_torch.ops import inflate_tokens
 from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
-from tests._port_corpus import mutated_streams
+from tests._port_corpus import edge_cases, edge_rows, mutated_streams
 from tests.conftest import make_corpus
 
 torch.set_num_threads(2)
@@ -119,6 +119,47 @@ def test_plain_equals_jax_kernel(words, group, k):
         assert v2.row_bytes(pw) == want
     if n >= 0:                       # nothing past the count
         assert not pw.view("<u1")[n:v2.OUT_CAP].any()
+
+
+EDGE = edge_cases()
+
+
+@pytest.fixture(scope="module")
+def edge_words():
+    """(JAX out words, plain out words) of the hand-built edge rows: one
+    more batch for the JAX kernel."""
+    import jax.numpy as jnp
+    lens, wds = edge_rows(EDGE)
+    jw = jv2._jit_inflate(len(EDGE))(jnp.asarray(lens), jnp.asarray(wds))
+    pw = v2.inflate_v2(torch.from_numpy(lens), torch.from_numpy(wds.copy()))
+    return np.asarray(jw).reshape(len(EDGE), v2.OUT_WORDS), pw.numpy()
+
+
+@pytest.mark.parametrize("k", range(len(EDGE)), ids=[n for n, _, _ in EDGE])
+def test_plain_equals_jax_kernel_on_edge_rows(edge_words, k):
+    """Rows filled to their last byte, bits read past the row (they wrap
+    to its start), bytes past a stream's end, matches at distances 31-33,
+    64 and 32,768, 15-bit codes: the count, the decoded bytes and the
+    flag word equal, and nothing past the count."""
+    jw, pw = edge_words[0][k], edge_words[1][k]
+    name, stream, _ = EDGE[k]
+    n = int(jw[-1])
+    assert int(pw[-1]) == n
+    jf, pf = int(jw[-2]), int(pw[-2])
+    if jf & v2.BAD_LENS_COUNT:       # the JAX kernel's carried-over lengths
+        jf, pf = jf & ~STALE, pf & ~STALE
+    assert pf == jf
+    assert v2.row_bytes(pw) == v2.row_bytes(jw)
+    assert not pw.view("<u1")[max(n, 0):v2.OUT_CAP].any() or n < 0
+    d = zlib.decompressobj(-15)
+    try:
+        want = d.decompress(stream)
+    except zlib.error:
+        want = None
+    if want is not None and d.eof:
+        assert v2.row_bytes(pw) == want and pw[-2] == 0
+    else:
+        assert n < 0
 
 
 def test_inflate_device_matches_the_jax_wrapper(words):
