@@ -51,8 +51,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    rows; every output word equal; then again on the static path's 128
    Z_FIXED slices, which give the kernel's timed record and its bound;
 12. the static path: inflate_device_static on 128 Z_FIXED slices,
-   byte-exact; inflate_static's launch count over it must be positive.
+   byte-exact; inflate_static's launch count over it must be positive;
+13. the level 0, 1 and 4 compress tiers: BatchCompressor(level=L,
+   use_device=True) over the corpus in 1 MiB items (64 KiB blocks),
+   every output checked with zlib, ratio and wall per level (two runs);
+   the first two items again with device="cpu", equal bytes;
+14. their two-pass decode: BatchDecompressor(use_device=True,
+   resolve="device") on the L1 and L4 items and on the level-0 streams
+   of the first 256 64-KiB slices, byte-exact; every host fallback is
+   "in_cap" of a stream over 1 MiB; pass 1 launched on each set; the
+   segment route's counts on the L1 and L4 items;
+15. their small batches: batches of 1 and 7 L1 and L4 slices within the
+   64 KiB input cap through BatchDecompressor(use_device=True),
+   byte-exact with no host fallback; inflate_v2 launched, pass 1 not;
+16. the static kernel on the port's own level-1 output:
+   inflate_device_static on the first 128 L1 slices within its input
+   cap, byte-exact, inflate_static launched; the same rows held to its
+   plain version word for word;
+17. the device checksums: crc32_device and adler32_device of the whole
+   corpus, crc32_blocks and adler32_blocks of its 64 KiB blocks, equal
+   to zlib, timed.
 
+Phases 13-17 drive the level 0-5 tiers and the checksums, the port's
+modules with no kernel of their own; the kernels' launches there are
+logged and asserted, and their records stay those of phases 3-12.
 Each kernel's record (ms, plain_ms, bound_ms) is taken on its path's
 own inputs, where every input and output byte is needed: the bound is
 those bytes over the card's memory rate. The last two lines are the
@@ -94,6 +116,8 @@ N_SMALL = (1, 7)        # small-batch path batch sizes
 N_STATIC = 128          # Z_FIXED slices through inflate_device_static
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM device memory, 3.35 TB/s
 KERNELS = ("inflate_tokens", "inflate_v2", "inflate_static")
+TIER_LEVELS = (0, 1, 4)     # the stored, static and dynamic compress tiers
+N_CPU_ITEMS = 2             # items also compressed with device="cpu"
 
 
 def log(msg: str) -> None:
@@ -711,11 +735,192 @@ def phase_static_path(data: bytes):
         f"{dt * 1e3:.1f} ms")
 
 
+def phase_compress_tiers(data: bytes):
+    """BatchCompressor at levels 0, 1 and 4 over the 1 MiB items on the
+    card, twice; every output through zlib; the first N_CPU_ITEMS items
+    again on the CPU, equal bytes. Returns {level: outputs}."""
+    import torch
+    from libdeflate_rsx_tpu_torch import BatchCompressor
+
+    items = [data[i:i + ITEM] for i in range(0, len(data), ITEM)]
+    comp = {}
+    for level in TIER_LEVELS:
+        bc = BatchCompressor(level=level, use_device=True, device="cuda")
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = bc.compress_batch(items)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        for i, (it_, c) in enumerate(zip(items, out)):
+            assert zlib.decompress(c, -15) == it_, f"L{level} item {i}"
+        t0 = time.perf_counter()
+        cpu = BatchCompressor(level=level, use_device=True, device="cpu") \
+            .compress_batch(items[:N_CPU_ITEMS])
+        cpu_s = time.perf_counter() - t0
+        assert cpu == out[:N_CPU_ITEMS], f"L{level}: card bytes != CPU bytes"
+        log(f"compress L{level}: {len(items)} items ({len(data)} bytes) "
+            f"round-trip through zlib; ratio "
+            f"{len(data) / sum(map(len, out)):.4f}; wall {walls[0]:.3f} s, "
+            f"again {walls[1]:.3f} s; the first {N_CPU_ITEMS} items on the "
+            f"CPU equal ({cpu_s:.2f} s)")
+        comp[level] = out
+    return items, comp
+
+
+def phase_decode_tiers(data: bytes, items, comp, tier_slices):
+    """The two-pass decoder on the L1 and L4 items and the level-0
+    slices: byte-exact, host fallbacks only "in_cap" of streams over
+    the 1 MiB input cap, pass 1 launched on each set."""
+    import torch
+    from libdeflate_rsx_tpu_torch import BatchDecompressor
+    from libdeflate_rsx_tpu_torch.batch import MAX_STREAM
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+
+    slices = [data[i * SLICE:(i + 1) * SLICE] for i in range(N_SLICES)]
+    sets = (("L1 items", comp[1], items, ITEM),
+            ("L4 items", comp[4], items, ITEM),
+            ("L0 slices", tier_slices[0], slices, SLICE))
+    for name, streams, originals, cap in sets:
+        over = sum(len(z) > MAX_STREAM for z in streams)
+        bd = BatchDecompressor(use_device=True, resolve="device",
+                               device="cuda")
+        it.LAUNCHES = 0                     # this path starts here
+        counts = route_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = bd.decompress_batch(streams, [cap] * len(streams))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = route_counts(counts)
+        bad = [i for i, (g, w) in enumerate(zip(got, originals)) if g != w]
+        assert not bad, f"decompress {name}: items {bad[:10]} not byte-exact"
+        assert dict(bd.fallbacks) == ({"in_cap": over} if over else {}), \
+            f"decompress {name}: fallbacks {dict(bd.fallbacks)}, {over} over"
+        assert it.LAUNCHES > 0, f"decompress {name}: pass 1 never launched"
+        log(f"decompress {name}: {len(streams)} streams "
+            f"({sum(map(len, streams))} bytes), {sum(map(len, originals))} "
+            f"bytes byte-exact; host fallbacks {dict(bd.fallbacks)} ({over} "
+            f"streams over {MAX_STREAM} B); pass-1 launches {it.LAUNCHES}; "
+            f"segment route {counts}; wall {dt:.3f} s")
+
+
+def phase_small_tiers(data: bytes, tier_slices):
+    """Batches of 1 and 7 L1 and L4 slices within inflate_v2's input cap
+    through BatchDecompressor(use_device=True): byte-exact, no host
+    fallback, inflate_v2 launched and pass 1 not."""
+    import torch
+    from libdeflate_rsx_tpu_torch import BatchDecompressor
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+    from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
+
+    for level in (1, 4):
+        fit = [(z, data[i * SLICE:(i + 1) * SLICE])
+               for i, z in enumerate(tier_slices[level])
+               if len(z) <= v2.IN_CAP][:max(N_SMALL)]
+        for n in N_SMALL:
+            bd = BatchDecompressor(use_device=True, device="cuda")
+            v2.LAUNCHES = it.LAUNCHES = 0     # this path starts here
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = bd.decompress_batch([z for z, _ in fit[:n]], [SLICE] * n)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            assert got == [c for _, c in fit[:n]], f"L{level} x{n}: bytes"
+            assert not bd.fallbacks, f"L{level} x{n}: {dict(bd.fallbacks)}"
+            assert v2.LAUNCHES > 0 and it.LAUNCHES == 0, \
+                (v2.LAUNCHES, it.LAUNCHES)
+            log(f"small batch L{level}: {n} slices of 64 KiB byte-exact, "
+                f"host fallbacks {{}}; inflate_v2 launches {v2.LAUNCHES}, "
+                f"pass 1 {it.LAUNCHES}; wall {dt * 1e3:.1f} ms")
+
+
+def phase_static_tier(data: bytes, tier_slices):
+    """inflate_device_static on the first N_STATIC L1 slices within its
+    input cap, byte-exact, its kernel launched; the same rows held to
+    the plain version word for word."""
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import inflate_device_static
+    from libdeflate_rsx_tpu_torch.ops import inflate_static as st
+
+    fit = [(z, data[i * SLICE:(i + 1) * SLICE])
+           for i, z in enumerate(tier_slices[1])
+           if len(z) <= st.IN_CAP][:N_STATIC]
+    assert len(fit) == N_STATIC, f"only {len(fit)} L1 slices fit"
+    streams, originals = [z for z, _ in fit], [c for _, c in fit]
+    st.LAUNCHES = 0                           # this path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = inflate_device_static(streams, "cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert got == originals, "inflate_device_static on L1: not byte-exact"
+    assert st.LAUNCHES > 0, "the L1 static path never launched its kernel"
+    log(f"inflate_device_static: {N_STATIC} L1 slices of 64 KiB "
+        f"({sum(map(len, streams))} bytes in) byte-exact; launches "
+        f"{st.LAUNCHES}; wall {dt * 1e3:.1f} ms")
+    err, ms, plain_ms, _ = stream_kernel_vs_plain(
+        st, "inflate_static", fit, "inflate_static on L1 slices")
+    log(f"  inflate_static vs plain on those rows: equal, max abs err {err}; "
+        f"kernel {ms:.3f} ms per launch (CUDA events, {KERNEL_REPS} "
+        f"launches); plain version {plain_ms:.1f} ms (host clock, one run)")
+    return err
+
+
+def phase_checksums(data: bytes):
+    """crc32_device and adler32_device of the corpus, crc32_blocks and
+    adler32_blocks of its 64 KiB blocks: equal to zlib, timed."""
+    import numpy as np
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
+
+    for name, fn, ref in (("crc32_device", ck.crc32_device, zlib.crc32),
+                          ("adler32_device", ck.adler32_device,
+                           zlib.adler32)):
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = fn(data, device="cuda")
+            walls.append(time.perf_counter() - t0)
+        assert got == ref(data), f"{name} != zlib"
+        log(f"{name} of the corpus ({len(data)} bytes): equal to zlib; "
+            f"wall {walls[0] * 1e3:.1f} ms, again {walls[1] * 1e3:.1f} ms "
+            f"(host clock, bytes to the card included)")
+    nblk = -(-len(data) // SLICE)
+    arr = np.zeros(nblk * SLICE, np.uint8)
+    arr[:len(data)] = np.frombuffer(data, np.uint8)
+    rows = torch.from_numpy(arr.reshape(nblk, SLICE)).cuda()
+    lengths = torch.tensor([min(SLICE, len(data) - i * SLICE)
+                            for i in range(nblk)], device="cuda")
+    blocks = [data[i * SLICE:(i + 1) * SLICE] for i in range(nblk)]
+    for name, fn, ref in (("crc32_blocks", ck.crc32_blocks, zlib.crc32),
+                          ("adler32_blocks", ck.adler32_blocks,
+                           zlib.adler32)):
+        got = fn(rows, lengths).cpu().tolist()
+        assert got == [ref(b) for b in blocks], f"{name} != zlib"
+        ms = time_cuda(lambda: fn(rows, lengths), KERNEL_REPS)
+        log(f"{name} of the corpus's {nblk} blocks of 64 KiB: equal to zlib; "
+            f"{ms:.3f} ms per call (CUDA events, {KERNEL_REPS} calls)")
+
+
+def tier_slices(data: bytes) -> dict:
+    """The first N_SLICES 64 KiB slices compressed on the card at levels
+    0, 1 and 4, one stream each: {level: streams}."""
+    from libdeflate_rsx_tpu_torch import BatchCompressor
+
+    slices = [data[i * SLICE:(i + 1) * SLICE] for i in range(N_SLICES)]
+    return {level: BatchCompressor(level=level, use_device=True,
+                                   device="cuda").compress_batch(slices)
+            for level in TIER_LEVELS}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from libdeflate_rsx_tpu_torch.ops import inflate_static as st
     from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
     from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
@@ -764,10 +969,22 @@ def main() -> int:
     rec_st["launches"] = st.LAUNCHES
     assert rec_st["launches"] > 0, "the static path never launched its kernel"
     log(f"inflate_static launches on the static path: {st.LAUNCHES}")
+
+    t_tiers = time.perf_counter()
+    items, comp = phase_compress_tiers(data)
+    sliced = tier_slices(data)
+    phase_decode_tiers(data, items, comp, sliced)
+    phase_small_tiers(data, sliced)
+    rec_st["max_abs_err"] = max(rec_st["max_abs_err"],
+                                phase_static_tier(data, sliced))
+    phase_checksums(data)
+    log(f"phases 13-17 (the level 0-5 tiers and the checksums): "
+        f"{time.perf_counter() - t_tiers:.1f} s")
     assert "jax" not in sys.modules, "the port imported jax"
     assert not any(m.split(".")[0] == "libdeflate_rsx_tpu"
                    for m in sys.modules), "the port imported the JAX package"
 
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     print(json.dumps({"kernels": [rec, rec_v2, rec_st]}))
     print(json.dumps({"ok": True, "device": {

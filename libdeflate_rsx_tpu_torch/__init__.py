@@ -6,8 +6,11 @@ and streaming codecs, containers, checksums, the pure-Python engine of
 models/portable/) and imports nothing of the JAX package. The batch
 classes run their device tiers on a CUDA device:
 
-- `BatchCompressor(level=6..9, use_device=True)`: the L6 ratio tier
-  (models/greedy_dynamic.py), byte-identical to the JAX package's;
+- `BatchCompressor(level=0..9, use_device=True)`: the stored tier at
+  level 0 (models/stored.py), the static-Huffman tier at levels 1-3
+  (models/greedy_static.py), the dynamic tier at levels 4-5 and the L6
+  ratio tier at levels 6-9 (models/greedy_dynamic.py), each
+  byte-identical to the JAX package's;
 - `BatchDecompressor(use_device=True)`: a batch of fewer than 8 items
   goes to the small-batch decoder (ops/inflate_v2.py, CUDA kernel
   csrc/inflate_v2.cu); 8 or more to the two-pass decoder, a CUDA pass-1
@@ -15,7 +18,9 @@ classes run their device tiers on a CUDA device:
   the host.
 
 `ops.inflate_device_static` decodes stored and static-Huffman streams
-(csrc/inflate_static.cu). This package imports `torch` and never `jax`.
+(csrc/inflate_static.cu); `ops.crc32_device` and `ops.adler32_device`
+compute the checksums on the device (ops/checksums.py). This package
+imports `torch` and never `jax`.
 """
 
 from .api import (

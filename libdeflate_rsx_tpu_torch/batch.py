@@ -1,11 +1,14 @@
 """Batch compression and decompression on a CUDA device.
 
-Port of `libdeflate_rsx_tpu/batch.py`. `BatchCompressor` runs the L6
-ratio tier (`models/greedy_dynamic.deflate_device_l6_many`) at levels
-6-9. `BatchDecompressor` routes a device batch as the JAX package does:
-fewer than SMALL_BATCH items go to the small-batch decoder
-(`ops/inflate_v2.inflate_v2`, one stream per block, 64 KiB caps); larger
-batches to the two-pass decoder: the pass-1 kernel
+Port of `libdeflate_rsx_tpu/batch.py`. `BatchCompressor` runs the
+device tiers as the JAX package does: level 0 the stored tier
+(`models/stored.py`), levels 1-3 the static-Huffman tier
+(`models/greedy_static.py`), levels 4-5 the fast dynamic tier and levels
+6-9 the L6 ratio tier (`models/greedy_dynamic.py`), whose batched forms
+take a whole batch in one pass. `BatchDecompressor` routes a device
+batch as the JAX package does: fewer than SMALL_BATCH items go to the
+small-batch decoder (`ops/inflate_v2.inflate_v2`, one stream per block,
+64 KiB caps); larger batches to the two-pass decoder: the pass-1 kernel
 (`ops/inflate_tokens.pass1`), then LZ resolution on the device
 (`ops/resolve.resolve_batch`) or on the host. Container headers and
 checksums are handled on the host. An item the device path cannot take
@@ -29,10 +32,10 @@ from .models.portable.deflate import Flush
 from .utils.errors import DeflateError, LevelError
 from .ops import inflate_tokens, inflate_v2
 
-# the L6 ratio tier; levels 0-5 have device tiers in the JAX package that
-# are not ported yet, levels 10-12 are host-only there too
-DEVICE_LEVELS_L6 = {6, 7, 8, 9}
-DEVICE_LEVELS_TODO = {0, 1, 2, 3, 4, 5}
+# levels served by the device encoders; levels 10-12 use the host engine
+DEVICE_LEVELS_STORED = {0}
+DEVICE_LEVELS_GREEDY = {1, 2, 3}
+DEVICE_LEVELS_DYNAMIC = {4, 5, 6, 7, 8, 9}   # 6-9: the L6 ratio tier
 MAX_STREAM = 1 << 20     # device decode cap per stream, in and out
 MAX_MATCH = 258          # longest DEFLATE match
 SMALL_BATCH = 8          # device batches below this go to inflate_v2
@@ -61,11 +64,6 @@ class BatchCompressor:
             raise LevelError(f"compression level {level} outside 0..=12")
         if format not in ("deflate", "zlib", "gzip"):
             raise ValueError(f"unknown format {format!r}")
-        if use_device and level in DEVICE_LEVELS_TODO:
-            raise NotImplementedError(
-                f"level {level} has no device tier in this port yet (see "
-                "ROADMAP.md, 'Modules to port': the L4-5 dynamic, L1-3 "
-                "static and L0 stored tiers)")
         self.level = level
         self.format = format
         self.use_device = use_device
@@ -83,15 +81,35 @@ class BatchCompressor:
                 + containers.gzip_footer(crc32_host(data), len(data)))
 
     def _device_wanted(self) -> bool:
-        if self.use_device is False or self.level not in DEVICE_LEVELS_L6:
+        if self.use_device is False or self.level not in (
+                DEVICE_LEVELS_STORED | DEVICE_LEVELS_GREEDY
+                | DEVICE_LEVELS_DYNAMIC):
             return False
         if self.use_device:
             return True
         return self.device.type == "cuda" and torch.cuda.is_available()
 
     def _compress_one_device(self, data: bytes) -> bytes:
-        from .models.greedy_dynamic import deflate_device_l6
-        return self._frame(data, deflate_device_l6(data, device=self.device))
+        if self.level in DEVICE_LEVELS_STORED:
+            from .models.stored import deflate_device_stored as encode
+        elif self.level in DEVICE_LEVELS_GREEDY:
+            from .models.greedy_static import deflate_device_static as encode
+        elif self.level >= 6:
+            from .models.greedy_dynamic import deflate_device_l6 as encode
+        else:
+            from .models.greedy_dynamic import deflate_device_dynamic as encode
+        return self._frame(data, encode(data, device=self.device))
+
+    def _compress_many_device(self, items: list[bytes]) -> list[bytes]:
+        """The dynamic tiers' batched form: all items' blocks in one
+        analyze and one emit pass."""
+        if self.level >= 6:
+            from .models.greedy_dynamic import deflate_device_l6_many as many
+        else:
+            from .models.greedy_dynamic import (
+                deflate_device_dynamic_many as many)
+        payloads = many(items, device=self.device)
+        return [self._frame(d, p) for d, p in zip(items, payloads)]
 
     def _compress_one_host(self, data: bytes) -> bytes:
         return self._frame(data, compress_raw(data, self.level, Flush.FINISH))
@@ -106,9 +124,13 @@ class BatchCompressor:
         """Auto-mode ratio contract: compress one sample (<= 256 KiB)
         through both paths once per instance and approve the device path
         only if its output stays within RATIO_SLACK of the host
-        engine's. A batch of tiny items gets no verdict cached."""
+        engine's. A batch of tiny items gets no verdict cached. Level 0
+        (stored) is approved without a sample."""
         if self._ratio_ok is not None:
             return self._ratio_ok
+        if self.level in DEVICE_LEVELS_STORED:
+            self._ratio_ok = True
+            return True
         sample = next((x for x in items if len(x) >= 4096), None)
         if sample is None:
             return False
@@ -119,17 +141,19 @@ class BatchCompressor:
         return self._ratio_ok
 
     def compress_batch(self, inputs) -> list[bytes]:
-        """One framed output per input. The device path encodes the
-        whole batch in one analyze/table/emit pass; host items run on the
-        shared thread pool, and a host item that fails yields b""."""
+        """One framed output per input. The dynamic tiers encode a batch
+        of several items in one analyze/table/emit pass, the stored and
+        static tiers one item at a time; a device failure raises. Host
+        items run on the shared thread pool, and a host item that fails
+        yields b""."""
         items = [bytes(x) for x in inputs]
         device = self._device_wanted()
         if device and self.use_device is None:
             device = self._ratio_calibrate(items)
         if device:
-            from .models.greedy_dynamic import deflate_device_l6_many
-            payloads = deflate_device_l6_many(items, device=self.device)
-            return [self._frame(d, p) for d, p in zip(items, payloads)]
+            if self.level in DEVICE_LEVELS_DYNAMIC and len(items) > 1:
+                return self._compress_many_device(items)
+            return [self._compress_one_device(d) for d in items]
         return pmap(self._compress_item, items)
 
 

@@ -1,14 +1,14 @@
-"""L6 ratio tier of the device encoder: whole buffers -> raw DEFLATE.
+"""Dynamic-Huffman tiers of the device encoder: whole buffers -> raw
+DEFLATE.
 
-Port of the L6 path of `libdeflate_rsx_tpu/models/greedy_dynamic.py`,
-with its JAX-free host helpers (`split_blocks_hist`, `assemble_dynamic`,
-`apply_stored_fallback`, `_or_bits`, and `_stored_block` from
-`greedy_static.py`) copied here, since the JAX modules that hold them
-import JAX. Blocks carry a 32 KiB history prefix; each is analyzed on
-the device, gets its code tables on the host, is emitted on the device,
-and is assembled on the host. A block whose dynamic stream would expand
-past the stored cost becomes stored blocks. The output is byte-identical
-to the JAX package's for the same input and block size.
+Port of `libdeflate_rsx_tpu/models/greedy_dynamic.py`: the fast tier of
+levels 4-5 (`deflate_device_dynamic[_many]`, blocks analyzed alone) and
+the L6 ratio tier of levels 6-9 (`deflate_device_l6[_many]`, blocks
+with a 32 KiB history prefix). Each block is analyzed on the device,
+gets its code tables on the host, is emitted on the device, and is
+assembled on the host. A block whose dynamic stream would expand past
+the stored cost becomes stored blocks. The output is byte-identical to
+the JAX package's for the same input and block size.
 """
 
 from __future__ import annotations
@@ -18,42 +18,15 @@ import torch
 
 from ..ops.encode_dynamic import (
     HIST,
+    analyze_block,
     analyze_block_l6,
     build_tables_host,
     emit_pack,
 )
 from ..ops.encode_v2 import BLOCK_PAD
+from .greedy_static import MAX_STORED, _phase_end, _stored_block, split_blocks
 
 DEFAULT_BLOCK = 65536
-MAX_STORED = 65535
-
-#: None, or a callable that the L6 flow calls with each phase's name as
-#: the phase ends: split, h2d, analyze, tables, emit, d2h, assemble, join
-#: (`deflate_device_l6` has no split and join); scripts/phase_probe_torch.py
-#: times the phases with it
-PHASE_END = None
-
-
-def _phase_end(name: str) -> None:
-    if PHASE_END is not None:
-        PHASE_END(name)
-
-
-def _stored_block(raw: bytes, final: bool) -> bytes:
-    """Byte-aligned stored block(s) for one chunk (RFC 1951 3.2.4)."""
-    out = bytearray()
-    n = len(raw)
-    pos = 0
-    while True:
-        chunk = min(n - pos, MAX_STORED)
-        last = pos + chunk == n
-        out.append(1 if (final and last) else 0)   # BFINAL, BTYPE=00
-        out += chunk.to_bytes(2, "little")
-        out += ((~chunk) & 0xFFFF).to_bytes(2, "little")
-        out += raw[pos:pos + chunk]
-        pos += chunk
-        if last:
-            return bytes(out)
 
 
 def _or_bits(buf: np.ndarray, bitpos: int, value: int, nbits: int) -> None:
@@ -147,19 +120,26 @@ def split_blocks_hist(data: bytes, block_size: int):
     return arr, valid, hist_start, finals, num
 
 
-def _encode_l6_blocks(arr, valid, hist_start, finals, block_size, device):
-    """Shared L6 flow: analyze (device) -> tables (host) -> emit (device)
-    -> assemble (host)."""
-    arr_t, valid_t, hist_t = (torch.from_numpy(x).to(device)
-                              for x in (arr, valid, hist_start))
+def _encode_blocks(arr, valid, finals, block_size, device,
+                  hist_start=None):
+    """Shared flow: analyze (device) -> tables (host) -> emit (device)
+    -> assemble (host). With hist_start, the blocks carry a history
+    prefix and take the L6 analysis."""
+    arr_t, valid_t = (torch.from_numpy(x).to(device) for x in (arr, valid))
+    hist_t = None if hist_start is None else \
+        torch.from_numpy(hist_start).to(device)
     _phase_end("h2d")
-    ml, dist, sel, lit, llh, ofh = analyze_block_l6(
-        arr_t, valid_t, hist_t, block_size)
+    if hist_t is None:
+        analyzed = analyze_block(arr_t, valid_t, block_size)
+    else:
+        analyzed = analyze_block_l6(arr_t, valid_t, hist_t, block_size)
+        arr_t = arr_t[:, HIST:]
+    ml, dist, sel, lit, llh, ofh = analyzed
     _phase_end("analyze")
     ll_tabs, of_tabs, headers, hdr_bits = build_tables_host(llh, ofh, finals)
     _phase_end("tables")
     device_out = emit_pack(
-        arr_t[:, HIST:], ml, dist, sel, lit,
+        arr_t, ml, dist, sel, lit,
         torch.from_numpy(ll_tabs.astype(np.int64)).to(device),
         torch.from_numpy(of_tabs.astype(np.int64)).to(device),
         torch.from_numpy(hdr_bits.astype(np.int64)).to(device), block_size)
@@ -173,48 +153,63 @@ def _encode_l6_blocks(arr, valid, hist_start, finals, block_size, device):
     return parts
 
 
+def _encode_many(datas: list[bytes], block_size: int, device,
+                 history: bool) -> list[bytes]:
+    """Batched encode of many independent buffers: all items' blocks
+    ride one analyze pass, one table step and one emit pass; history
+    (the L6 tier) never crosses item bounds."""
+    metas, blocks = [], []
+    row = 0
+    for data in datas:
+        if history:
+            arr, valid, hist_start, finals, num = split_blocks_hist(
+                data, block_size)
+            payload = valid - HIST
+        else:
+            arr, valid, finals, num = split_blocks(data, block_size)
+            hist_start, payload = None, valid
+        metas.append((row, num, data, finals, payload))
+        blocks.append((arr, valid, hist_start, finals))
+        row += num
+    if not metas:
+        return []
+    arr, valid, hist_start, finals = (
+        None if parts[0] is None else np.concatenate(parts)
+        for parts in zip(*blocks))
+    _phase_end("split")
+    parts = _encode_blocks(arr, valid, finals, block_size, device,
+                           hist_start)
+    outs = [b"".join(apply_stored_fallback(
+        parts[start:start + num], data, block_size, payload, fin, num))
+        for start, num, data, fin, payload in metas]
+    _phase_end("join")
+    return outs
+
+
+def deflate_device_dynamic(data: bytes, block_size: int = DEFAULT_BLOCK,
+                           device="cuda") -> bytes:
+    """Whole-buffer raw-DEFLATE encode, dynamic-Huffman tier (levels
+    4-5)."""
+    return _encode_many([data], block_size, device, history=False)[0]
+
+
+def deflate_device_dynamic_many(datas: list[bytes],
+                                block_size: int = DEFAULT_BLOCK,
+                                device="cuda") -> list[bytes]:
+    """Batched dynamic-tier encode of many independent buffers in one
+    analyze and one emit pass; equal to the per-item encodes."""
+    return _encode_many(datas, block_size, device, history=False)
+
+
 def deflate_device_l6(data: bytes, block_size: int = DEFAULT_BLOCK,
                       device="cuda") -> bytes:
-    """Whole-buffer raw-DEFLATE encode, L6 ratio tier."""
-    arr, valid, hist_start, finals, num = split_blocks_hist(data, block_size)
-    parts = _encode_l6_blocks(arr, valid, hist_start, finals, block_size,
-                              device)
-    return b"".join(apply_stored_fallback(
-        parts, data, block_size, valid - HIST, finals, num))
+    """Whole-buffer raw-DEFLATE encode, L6 ratio tier (levels 6-9)."""
+    return _encode_many([data], block_size, device, history=True)[0]
 
 
 def deflate_device_l6_many(datas: list[bytes],
                            block_size: int = DEFAULT_BLOCK,
                            device="cuda") -> list[bytes]:
-    """Batched L6 encode of many independent buffers: all items'
-    history-prefixed blocks ride one analyze pass, one table step and
-    one emit pass; history never crosses item bounds."""
-    metas = []
-    arrs, valids, hists, finals_l = [], [], [], []
-    row = 0
-    for data in datas:
-        arr, valid, hist_start, finals, num = split_blocks_hist(
-            data, block_size)
-        metas.append((row, num, data, finals))
-        row += num
-        arrs.append(arr)
-        valids.append(valid)
-        hists.append(hist_start)
-        finals_l.append(finals)
-    if not metas:
-        return []
-    arr = np.concatenate(arrs)
-    valid = np.concatenate(valids)
-    hist_start = np.concatenate(hists)
-    finals = np.concatenate(finals_l)
-    _phase_end("split")
-    parts = _encode_l6_blocks(arr, valid, hist_start, finals, block_size,
-                              device)
-    outs = []
-    for start, num, data, fin in metas:
-        item_parts = apply_stored_fallback(
-            parts[start:start + num], data, block_size,
-            valid[start:start + num] - HIST, fin, num)
-        outs.append(b"".join(item_parts))
-    _phase_end("join")
-    return outs
+    """Batched L6 encode of many independent buffers in one analyze and
+    one emit pass; equal to the per-item encodes."""
+    return _encode_many(datas, block_size, device, history=True)

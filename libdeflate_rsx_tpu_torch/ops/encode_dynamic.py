@@ -1,12 +1,15 @@
-"""L6 ratio tier of the dynamic-Huffman encoder: match finding, symbol
-histograms, host code tables and table-coded emission.
+"""Dynamic-Huffman encoder: match finding, symbol histograms, host code
+tables and table-coded emission.
 
-Port of the L6 parts of `libdeflate_rsx_tpu/ops/encode_dynamic.py`. The
-flow per batch of blocks:
+Port of `libdeflate_rsx_tpu/ops/encode_dynamic.py`. The flow per batch
+of blocks:
 
-  analyze_block_l6  match finding over [32 KiB history | payload],
-                    run extension, lazy demotion, greedy selection and
-                    per-block litlen/offset histograms (device);
+  analyze_block     (levels 4-5) find_matches_v2, run extension, greedy
+                    selection and per-block litlen/offset histograms
+                    (device);
+  analyze_block_l6  (levels 6-9) match finding over [32 KiB history |
+                    payload], run extension, lazy demotion, greedy
+                    selection and the histograms (device);
   build_tables_host histograms -> per-block canonical code tables and
                     serialized headers (host, the package-merge Python
                     builder);
@@ -26,7 +29,16 @@ import numpy as np
 import torch
 
 from ..common import WINDOW_SIZE
-from .encode_v2 import MIN_MATCH, extend_runs, pack_rows, select_tokens
+from .encode_v2 import (
+    MIN_MATCH,
+    _prefix_bytes,
+    _unsort,
+    _words_at,
+    extend_runs,
+    find_matches_v2,
+    pack_rows,
+    select_tokens,
+)
 from .static_codes import length_sym_fields, offset_sym_fields
 
 ROW_OUT_DYN = 64      # 32 lanes x <= 15-bit literals = 480 bits = 60 B max
@@ -52,21 +64,6 @@ def _hist(sym: torch.Tensor, nbins: int) -> torch.Tensor:
     return counts.view(b, nbins + 1)[:, :nbins]
 
 
-def _words_at(d: torch.Tensor, off: int, s: int) -> torch.Tensor:
-    """Little-endian 4-byte words at offsets off..off+s-1 of each row of
-    d (B, N) int64 bytes."""
-    return (d[:, off:off + s] | (d[:, off + 1:off + 1 + s] << 8)
-            | (d[:, off + 2:off + 2 + s] << 16)
-            | (d[:, off + 3:off + 3 + s] << 24))
-
-
-def _prefix_bytes(x: torch.Tensor) -> torch.Tensor:
-    """Number of matching low bytes (0-3) given the XOR of two words."""
-    return (((x & 0xFF) == 0).to(torch.int64)
-            + ((x & 0xFFFF) == 0).to(torch.int64)
-            + ((x & 0xFFFFFF) == 0).to(torch.int64))
-
-
 def _ml_from_xors(xs) -> torch.Tensor:
     """Exact common-prefix length 0..4*len(xs) from per-word XORs."""
     total = torch.zeros_like(xs[0])
@@ -88,11 +85,6 @@ def _merge_cand(ml_new, dist_new, best_ml, best_dist):
 def _shift(a: torch.Tensor, j: int) -> torch.Tensor:
     """a[:, i - j] along dim 1, zero in the first j columns."""
     return torch.cat([torch.zeros_like(a[:, :j]), a[:, :-j]], dim=1)
-
-
-def _unsort(order: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Inverse of a sort permutation: out[:, order[:, i]] = vals[:, i]."""
-    return torch.empty_like(vals).scatter_(1, order, vals)
 
 
 def find_matches_l6(data_padded: torch.Tensor, valid_len: torch.Tensor,
@@ -214,6 +206,34 @@ def find_matches_l6(data_padded: torch.Tensor, valid_len: torch.Tensor,
     return best_ml, best_dist
 
 
+def _histograms(byte, ml, dist, sel, lit):
+    """Per-block (ll_hist (B, 288), of_hist (B, 30)) uint16 of the
+    selected tokens, saturated at 65535."""
+    lsym, _, _ = length_sym_fields(torch.clamp(ml, min=MIN_MATCH))
+    dsym, _, _ = offset_sym_fields(dist.clamp(1, WINDOW_SIZE))
+    hsym = torch.where(sel, lsym, torch.where(lit, byte, _NOSYM_LL))
+    ll_hist = _hist(hsym, NUM_LITLEN).clamp(max=65535).to(torch.uint16)
+    of_hist = _hist(torch.where(sel, dsym, _NOSYM_OF), NUM_OFFSET) \
+        .clamp(max=65535).to(torch.uint16)
+    return ll_hist, of_hist
+
+
+def analyze_block(data_padded: torch.Tensor, valid_len: torch.Tensor,
+                  block_size: int):
+    """Match pipeline + per-block symbol histograms (levels 4-5).
+    data_padded (B, block_size + BLOCK_PAD) uint8, valid_len (B,).
+
+    Returns (ml, dist, sel, lit) (B, block_size), the inputs of
+    emit_pack, and (ll_hist (B, 288), of_hist (B, 30)) uint16."""
+    s = block_size
+    valid_len = valid_len.to(torch.int64)
+    ml, dist = find_matches_v2(data_padded, valid_len, s)
+    ml = extend_runs(ml, dist, valid_len)
+    ml, sel, lit = select_tokens(ml, dist, valid_len)
+    byte = data_padded[:, :s].to(torch.int64)
+    return (ml, dist, sel, lit) + _histograms(byte, ml, dist, sel, lit)
+
+
 def analyze_block_l6(data_padded: torch.Tensor, valid_len: torch.Tensor,
                      hist_start: torch.Tensor, block_size: int):
     """L6 match pipeline over [32 KiB history | payload] + payload-region
@@ -238,14 +258,8 @@ def analyze_block_l6(data_padded: torch.Tensor, valid_len: torch.Tensor,
     ml, sel, lit = select_tokens(ml, dist, valid_len, wtile=WTILE_L6)
 
     ml, dist, sel, lit = (x[:, HIST:] for x in (ml, dist, sel, lit))
-    lsym, _, _ = length_sym_fields(torch.clamp(ml, min=MIN_MATCH))
-    dsym, _, _ = offset_sym_fields(dist.clamp(1, WINDOW_SIZE))
     byte = data_padded[:, HIST:HIST + block_size].to(torch.int64)
-    hsym = torch.where(sel, lsym, torch.where(lit, byte, _NOSYM_LL))
-    ll_hist = _hist(hsym, NUM_LITLEN).clamp(max=65535).to(torch.uint16)
-    of_hist = _hist(torch.where(sel, dsym, _NOSYM_OF), NUM_OFFSET) \
-        .clamp(max=65535).to(torch.uint16)
-    return ml, dist, sel, lit, ll_hist, of_hist
+    return (ml, dist, sel, lit) + _histograms(byte, ml, dist, sel, lit)
 
 
 def emit_pack(data_padded: torch.Tensor, ml: torch.Tensor,

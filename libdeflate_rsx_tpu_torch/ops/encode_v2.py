@@ -1,20 +1,29 @@
-"""Match extension, greedy token selection and bit packing (L6 subset).
+"""Static-Huffman block encoder: match finding, match extension, greedy
+token selection and bit packing.
 
-Port of the parts of `libdeflate_rsx_tpu/ops/encode_v2.py` that the L6
-ratio tier runs: `extend_runs`, `_two_level`, `select_tokens` and
-`pack_rows`, with their constants. The JAX functions take one block and
-are vmapped; these take a batch of blocks, shape (B, s). uint32 values
-are held in int64.
+Port of `libdeflate_rsx_tpu/ops/encode_v2.py`: `find_matches_v2`,
+`extend_runs`, `select_tokens`, `pack_rows`, the fused level-1 encoder
+`encode_rows_static` and the host-side row placement `assemble_blocks`.
+The JAX functions take one block and are vmapped; these take a batch of
+blocks, shape (B, s). uint32 values are held in int64. The JAX
+package's stable multi-operand sort becomes one stable `torch.sort`
+with the carried operands gathered by its indices (an unstable sort
+orders ties differently on the card than on the CPU, and so changes the
+bytes); its sort by unique position is an inverse permutation, done as
+a scatter.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..common import MAX_MATCH_LEN
+from ..common import MAX_MATCH_LEN, WINDOW_SIZE
+from .static_codes import literal_code, match_token
 
 ROW = 32                  # cover/pack row width (bytes)
 ROW_OUT = 48              # row-local output buffer (bytes)
+MAX_VEC_ML = 8            # exact verified match length from carried words
 MIN_MATCH = 4
 BLOCK_PAD = MAX_MATCH_LEN + 8
 _NEG = -(1 << 20)
@@ -35,6 +44,53 @@ def _shift_left(a: torch.Tensor, d: int, fill) -> torch.Tensor:
     """a[:, i + d] along dim 1, `fill` in the last d columns."""
     pad = torch.full_like(a[:, :d], fill)
     return torch.cat([a[:, d:], pad], dim=1)
+
+
+def _words_at(d: torch.Tensor, off: int, s: int) -> torch.Tensor:
+    """Little-endian 4-byte words at offsets off..off+s-1 of each row of
+    d (B, N) int64 bytes."""
+    return (d[:, off:off + s] | (d[:, off + 1:off + 1 + s] << 8)
+            | (d[:, off + 2:off + 2 + s] << 16)
+            | (d[:, off + 3:off + 3 + s] << 24))
+
+
+def _prefix_bytes(x: torch.Tensor) -> torch.Tensor:
+    """Number of matching low bytes (0-3) given the XOR of two words."""
+    return (((x & 0xFF) == 0).to(torch.int64)
+            + ((x & 0xFFFF) == 0).to(torch.int64)
+            + ((x & 0xFFFFFF) == 0).to(torch.int64))
+
+
+def _unsort(order: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Inverse of a sort permutation: out[:, order[:, i]] = vals[:, i]
+    (indices unique, so the scatter is deterministic)."""
+    return torch.empty_like(vals).scatter_(1, order, vals)
+
+
+def find_matches_v2(data_padded: torch.Tensor, valid_len: torch.Tensor,
+                    block_size: int):
+    """(ml, dist) (B, s) per position: nearest-previous-occurrence
+    matches with exact lengths up to MAX_VEC_ML, from one stable sort on
+    the 4-byte word at each position carrying the next word.
+
+    data_padded (B, >= s + 7) uint8, valid_len (B,). Lengths beyond 8
+    come from extend_runs' same-distance composition."""
+    s = block_size
+    d = data_padded.to(torch.int64)
+    pos = torch.arange(s, device=d.device)
+    w0s, poss = torch.sort(_words_at(d, 0, s), dim=1, stable=True)
+    w1s = _words_at(d, 4, s).gather(1, poss)
+    same = torch.cat([torch.zeros_like(w0s[:, :1], dtype=torch.bool),
+                      w0s[:, 1:] == w0s[:, :-1]], dim=1)
+    dist = poss - _shift_right(poss, 1, 0)
+    ok = same & (dist >= 1) & (dist <= WINDOW_SIZE)
+    x1 = w1s ^ _shift_right(w1s, 1, 0)
+    ml = 4 + torch.where(x1 == 0, 4, _prefix_bytes(x1))
+    ml_u = _unsort(poss, torch.where(ok, ml, 0))
+    dist_u = _unsort(poss, torch.where(ok, dist, 0))
+    cap = (valid_len.to(torch.int64)[:, None] - pos).clamp(0, MAX_VEC_ML)
+    ml_u = torch.minimum(ml_u, cap)
+    return torch.where(ml_u >= MIN_MATCH, ml_u, 0), dist_u
 
 
 def _two_level(x: torch.Tensor) -> torch.Tensor:
@@ -183,3 +239,87 @@ def pack_rows(val: torch.Tensor, nb: torch.Tensor, start_bits: torch.Tensor,
     cols = delta[..., None] + torch.arange(row_out + 1, device=dev)
     rows = bufz.gather(2, cols).to(torch.uint8)
     return rows, byte_off, row_bit0, start_bits.to(torch.int64) + ends[:, -1]
+
+
+def encode_rows_static(data_padded: torch.Tensor, valid_len: torch.Tensor,
+                       is_final: torch.Tensor, block_size: int):
+    """Level-1 encoder for a batch of padded blocks: matches, greedy
+    tokens, static codes and bit packing.
+
+    data_padded (B, block_size + BLOCK_PAD) uint8, valid_len and is_final
+    (B,). Returns (rows (B, R, ROW_OUT + 1) uint8 globally bit-aligned
+    row buffers, byte_off (B, R), rowbits (B, R), total_bits (B,),
+    nbytes (B,))."""
+    s = block_size
+    valid_len = valid_len.to(torch.int64)
+    ml, dist = find_matches_v2(data_padded, valid_len, s)
+    ml = extend_runs(ml, dist, valid_len)
+    ml, sel, lit = select_tokens(ml, dist, valid_len)
+
+    lv, ln = literal_code(data_padded[:, :s])
+    mv, mn = match_token(ml.clamp(min=MIN_MATCH), dist.clamp(1, WINDOW_SIZE))
+    val = torch.where(sel, mv, torch.where(lit, lv, 0))
+    nb = torch.where(sel, mn, torch.where(lit, ln, 0))
+
+    # the 3-bit block header precedes the body
+    start = torch.full_like(valid_len, 3)
+    rows, byte_off, row_bit0, end_bits = pack_rows(val, nb, start, ROW_OUT)
+    rowbits = torch.diff(torch.cat([row_bit0, end_bits[:, None]], dim=1),
+                         dim=1)
+    total_bits = end_bits + 7                   # body + EOB (7 zero bits)
+    # a non-final block ends in a SYNC: 3-bit header + 00 00 FF FF
+    nbytes = torch.where(is_final.to(torch.bool), (total_bits + 7) // 8,
+                         (total_bits + 3 + 7) // 8 + 4)
+    return rows, byte_off, rowbits, total_bits, nbytes
+
+
+def assemble_blocks(rows: np.ndarray, byte_off: np.ndarray,
+                    rowbits: np.ndarray, total_bits: np.ndarray,
+                    nbytes: np.ndarray, finals: np.ndarray,
+                    num: int, out_cap: int) -> list[bytes]:
+    """Host-side placement of the row buffers into each block's stream
+    (the JAX package's numpy path; the port has no native codec).
+
+    Interior bytes of each row never collide across rows (consecutive
+    rows share at most one boundary byte), so they go in with one fancy
+    assignment; the first and last byte of each row and the 3-bit block
+    header are OR-accumulated. The EOB is the static code 0000000 (zero
+    bits: length arithmetic only); a non-final block gets the SYNC empty
+    stored block 00 00 FF FF."""
+    b, r, w = rows.shape
+    out = np.zeros((b, out_cap), dtype=np.uint8)
+    # bytes spanned by each row's bits depend on its in-byte start phase
+    cs = np.zeros((b, r), np.int64)
+    cs[:, 1:] = np.cumsum(rowbits[:, :-1], axis=1)
+    phase = (3 + cs) & 7
+    extent = np.minimum((phase + rowbits + 7) // 8, w)
+    kk = np.arange(w)[None, None, :]
+    gidx = byte_off[:, :, None] + kk                 # (B, R, W) global bytes
+    interior = (kk >= 1) & (kk < extent[:, :, None] - 1)
+    bidx = np.broadcast_to(np.arange(b)[:, None, None], gidx.shape)
+    out[bidx[interior], gidx[interior]] = rows[interior]
+    boundary = ((kk == 0) | (kk == extent[:, :, None] - 1)) & \
+        (kk < extent[:, :, None])
+    np.bitwise_or.at(out, (bidx[boundary], gidx[boundary]), rows[boundary])
+    # 3-bit block header: BFINAL | BTYPE=01 (LSB-first)
+    for i in range(num):
+        out[i, 0] |= (1 if finals[i] else 0) | 0b010
+        if not finals[i]:
+            nb = int(nbytes[i])
+            out[i, nb - 4:nb] = (0, 0, 0xFF, 0xFF)
+    return [out[i, : int(nbytes[i])].tobytes() for i in range(num)]
+
+
+def deflate_device_static_v2(data: bytes, block_size: int = 65536,
+                             device="cuda") -> bytes:
+    """Whole-buffer raw-DEFLATE encode on the device (level-1 tier,
+    without the stored fallback of models/greedy_static)."""
+    from ..models.greedy_static import split_blocks
+    arr, valid, finals, num = split_blocks(data, block_size)
+    out = encode_rows_static(*(torch.from_numpy(x).to(device)
+                               for x in (arr, valid, finals)), block_size)
+    rows, byte_off, rowbits, total_bits, nbytes = (t.cpu().numpy()
+                                                    for t in out)
+    out_cap = int(block_size * 1.25) + 64
+    return b"".join(assemble_blocks(rows, byte_off, rowbits, total_bits,
+                                    nbytes, finals, num, out_cap))

@@ -4,9 +4,11 @@
 Usage: python3 scripts/phase_probe_torch.py [--out FILE]
 
 Times, with the card synchronised around each phase: BatchCompressor
-cold and warm; the L6 encode phases of a BatchCompressor run (split,
-host-to-device, analyze, host table step, emit, device-to-host, host
-assembly, join), read at the flow's own phase ends; the
+cold and warm; the encode phases of a BatchCompressor run at levels 6
+and 4 (split, host-to-device, analyze, host table step, emit,
+device-to-host, host assembly, join) and at level 1 (split,
+host-to-device, encode, device-to-host, host assembly; summed over the
+items), read at the flows' own phase ends; the
 pass-1 kernel and resolve_batch at the main path's shapes (CUDA
 events); the plain pass 1 on the 256-slice decode set (host clock);
 BatchDecompressor on both decode sets; and the device busy share of one
@@ -40,16 +42,18 @@ def lap(t0: float) -> tuple[float, float]:
 
 
 def encode_phases(bc, items, say):
-    """Phase times of one BatchCompressor run, taken where the L6 flow
-    ends each phase (models/greedy_dynamic.PHASE_END), with the card
-    synchronised there: the phases of the path itself, serialised."""
-    from libdeflate_rsx_tpu_torch.models import greedy_dynamic as g
+    """Phase times of one BatchCompressor run, taken where the encode
+    flow ends each phase (models/greedy_static.PHASE_END), with the card
+    synchronised there: the phases of the path itself, serialised, each
+    summed over its repeats (the level-1 tier runs per item)."""
+    from libdeflate_rsx_tpu_torch.models import greedy_static as g
 
     ms = {}
     last = [0.0]
 
     def end(name):
-        ms[name], last[0] = lap(last[0])
+        dt, last[0] = lap(last[0])
+        ms[name] = ms.get(name, 0.0) + dt
 
     sync()
     g.PHASE_END = end
@@ -60,8 +64,8 @@ def encode_phases(bc, items, say):
     finally:
         g.PHASE_END = None
     blocks = sum(max(1, -(-len(d) // BLOCK)) for d in items)
-    say(f"compress phases ({blocks} blocks, total {total:.1f}): " + " ".join(
-        f"{k} {v:.1f}" for k, v in ms.items()) + " ms")
+    say(f"compress L{bc.level} phases ({blocks} blocks, total {total:.1f}): "
+        + " ".join(f"{k} {v:.1f}" for k, v in ms.items()) + " ms")
 
 
 def busy_share(name, fn, say):
@@ -128,6 +132,11 @@ def probe(say) -> int:
         say(f"compress_batch {label} {lap(t0)[0]:.1f} ms")
     for _ in range(2):
         encode_phases(bc, items, say)
+    for level in (1, 4):
+        tier = BatchCompressor(level=level, use_device=True, device="cuda")
+        tier.compress_batch(items)                       # warm
+        for _ in range(2):
+            encode_phases(tier, items, say)
 
     chunks = [data[i * BLOCK:(i + 1) * BLOCK] for i in range(cs.N_SLICES)]
     streams = [cs.raw_z(c) for c in chunks]

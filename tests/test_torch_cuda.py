@@ -1,6 +1,9 @@
 """The port on a CUDA card: the pass-1, inflate_v2 and inflate_static
-kernels against their plain PyTorch versions on the card, and the slice
-through the kernels. Every test here needs a card and skips without one.
+kernels against their plain PyTorch versions on the card, the slice
+through the kernels, the level 0-5 compress tiers (card bytes equal to
+CPU bytes, decoded through the kernels) and the device checksums under
+TF32 and bf16 matmul precision. Every test here needs a card and skips
+without one.
 
 Run on a machine with a card (the suite's conftest.py imports jax, which
 such a machine need not have): python -m pytest --noconftest
@@ -10,6 +13,7 @@ tests/test_torch_cuda.py
 import random
 import zlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -203,3 +207,81 @@ def test_small_batch_goes_through_inflate_v2_on_card(card):
     c = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
     fixed = c.compress(items[0]) + c.flush()
     assert inflate_device_static([fixed, _z(items[0])], card) == [items[0], None]
+
+
+TIER_DATAS = [make_corpus("text", 70000, seed=1), make_corpus("pattern", 9000),
+              make_corpus("random", 3000, seed=2), b"", b"x"]
+
+
+@pytest.mark.parametrize("level", range(6))
+def test_compress_tiers_on_card_equal_cpu(card, level):
+    """The level 0-5 tiers give the same bytes on the card as on the CPU,
+    for a batch and for one item alone."""
+    from libdeflate_rsx_tpu_torch import BatchCompressor
+
+    gpu = BatchCompressor(level=level, use_device=True,
+                          device=card).compress_batch(TIER_DATAS)
+    cpu = BatchCompressor(level=level, use_device=True,
+                          device="cpu").compress_batch(TIER_DATAS)
+    assert gpu == cpu
+    assert BatchCompressor(level=level, use_device=True, device=card) \
+        .compress_batch(TIER_DATAS[:1]) == cpu[:1]
+    assert [zlib.decompress(c, -15) for c in gpu] == TIER_DATAS
+
+
+@pytest.mark.parametrize("level", [0, 1, 4])
+def test_tier_output_decodes_through_the_kernels_on_card(card, level):
+    """The tiers' output, decoded on the card by the two-pass decoder (8
+    items), the small-batch decoder (3 items) and, for levels 0-1,
+    inflate_device_static: byte-exact, no host fallback."""
+    from libdeflate_rsx_tpu_torch import BatchCompressor, BatchDecompressor
+    from libdeflate_rsx_tpu_torch.ops import inflate_device_static
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+    from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
+
+    datas = [make_corpus(k, 20000 + 4099 * i, seed=i) for i, k in enumerate(
+        ("text", "pattern", "zeros", "periodic:7") * 2)]
+    comp = BatchCompressor(level=level, use_device=True,
+                           device=card).compress_batch(datas)
+    caps = [len(d) for d in datas]
+    for n, mod in ((8, it), (3, v2)):
+        before = mod.LAUNCHES
+        bd = BatchDecompressor(use_device=True, resolve="device", device=card)
+        assert bd.decompress_batch(comp[:n], caps[:n]) == datas[:n]
+        assert not bd.fallbacks and mod.LAUNCHES > before
+    if level < 2:
+        assert inflate_device_static(comp, card) == datas
+
+
+def test_checksums_on_card_exact_under_any_matmul_precision(card):
+    """The device checksums equal zlib with TF32 and bf16 matmuls
+    allowed (the settings are restored afterwards)."""
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    precision = torch.get_float32_matmul_precision()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("medium")
+        for size in (1, 127, 1025, 5000, 100001, 1 << 20):
+            data = make_corpus("random", size, seed=size)
+            assert ck.crc32_device(data, device=card) == zlib.crc32(data)
+            assert ck.adler32_device(data, device=card) == zlib.adler32(data)
+        a, b = make_corpus("text", 3000), make_corpus("text", 5000, seed=9)
+        assert ck.crc32_device(b, zlib.crc32(a), card) == zlib.crc32(a + b)
+        assert ck.adler32_device(b, zlib.adler32(a), card) == \
+            zlib.adler32(a + b)
+        rows = [make_corpus("random", n, seed=n) for n in (0, 1, 1000, 5119,
+                                                           5120)]
+        data = np.zeros((len(rows), 5120), np.uint8)
+        for i, r in enumerate(rows):
+            data[i, :len(r)] = np.frombuffer(r, np.uint8)
+        args = (torch.from_numpy(data).to(card),
+                torch.tensor([len(r) for r in rows], device=card))
+        crcs = ck.crc32_blocks(*args).cpu()
+        adlers = ck.adler32_blocks(*args).cpu()
+        assert crcs.tolist() == [zlib.crc32(r) for r in rows]
+        assert adlers.tolist() == [zlib.adler32(r) for r in rows]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_float32_matmul_precision(precision)

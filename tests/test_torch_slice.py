@@ -112,10 +112,10 @@ def test_container_and_checksum_fallbacks():
 
 
 def test_phase_hook_sees_every_phase_in_order(monkeypatch):
-    from libdeflate_rsx_tpu_torch.models import greedy_dynamic
+    from libdeflate_rsx_tpu_torch.models import greedy_static
 
     seen = []
-    monkeypatch.setattr(greedy_dynamic, "PHASE_END", seen.append)
+    monkeypatch.setattr(greedy_static, "PHASE_END", seen.append)
     out = BatchCompressor(level=6, use_device=True,
                           device="cpu").compress_batch(DATAS[2:])
     assert [zlib.decompress(o, -15) for o in out] == DATAS[2:]
@@ -124,8 +124,9 @@ def test_phase_hook_sees_every_phase_in_order(monkeypatch):
 
 
 def test_routing_rules():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchCompressor(level=3, use_device=True, device="cpu")
+    for level in range(10):           # every device tier, levels 0-9
+        assert BatchCompressor(level=level, use_device=True,
+                               device="cpu")._device_wanted()
     bc = BatchCompressor(level=6, device="cpu")       # auto mode, no CUDA
     assert not bc._device_wanted()
     out = bc.compress_batch([DATAS[1]])
