@@ -70,11 +70,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version word for word;
 17. the device checksums: crc32_device and adler32_device of the whole
    corpus, crc32_blocks and adler32_blocks of its 64 KiB blocks, equal
-   to zlib, timed.
+   to zlib, timed;
+18. the memory budget of one device pass (budget.py): the one-pass peak
+   (torch.cuda.max_memory_allocated) per unit byte of the static, L4
+   and L6 compress tiers and of the two-pass decode (resolve on the
+   card) on the corpus, each within budget.PEAK_PER_BYTE; then one L6
+   compress_batch and one device-resolve decode of the corpus items
+   repeated until one pass would need BUDGET_OVER x the card's memory
+   at the peaks just measured: 2 or more passes, every item equal to
+   its single compress, every decode byte-exact, no host fallback;
+19. ShardedCompressor at NCCL world size 1 on the corpus: the static
+   tier in the three formats, the dynamic tier and the static
+   compress_batch over the items, equal to the single-card tiers and
+   round-tripping through zlib; walls and collective times;
+20. N_RANKS gloo ranks on the one card, child processes of this script
+   (`--gloo-rank`) with a timeout: the same bytes as phase 19, and
+   compress_global in gzip gunzips to the corpus; then the 256 slices
+   repeated through ShardedDecompressor (resolve on the card) until the
+   ranks together would need BUDGET_OVER x the card's memory in one pass
+   each: the ranks count each other on the card (budget.SHARERS), each
+   runs 2 or more passes, every stream byte-exact;
+21. ShardedDecompressor on the 256 zlib-6 slices at NCCL world size 1
+   (in this process) and at N_RANKS gloo ranks (in phase 20's ranks),
+   host and device resolve: every stream within the 64 KiB input cap
+   byte-exact, the others None; pass 1 launched.
 
-Phases 13-17 drive the level 0-5 tiers and the checksums, the port's
-modules with no kernel of their own; the kernels' launches there are
-logged and asserted, and their records stay those of phases 3-12.
+Phases 13-21 drive the level 0-5 tiers, the checksums, the memory
+budget and the sharded paths, the port's modules with no kernel of
+their own; the kernels' launches there are logged and asserted, and
+their records stay those of phases 3-12.
 Each kernel's record (ms, plain_ms, bound_ms) is taken on its path's
 own inputs, where every input and output byte is needed: the bound is
 those bytes over the card's memory rate. The last two lines are the
@@ -85,8 +109,10 @@ without a result when no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import gzip
 import json
+import math
 import os
 import random
 import subprocess
@@ -118,6 +144,9 @@ HBM_BYTES_PER_MS = 3.35e9   # H100 SXM device memory, 3.35 TB/s
 KERNELS = ("inflate_tokens", "inflate_v2", "inflate_static")
 TIER_LEVELS = (0, 1, 4)     # the stored, static and dynamic compress tiers
 N_CPU_ITEMS = 2             # items also compressed with device="cpu"
+BUDGET_OVER = 1.2           # phases 18, 20: one-pass need / card memory
+N_RANKS = 2                 # phase 20: gloo ranks on the one card
+RANK_TIMEOUT = 300          # seconds for phase 20's ranks
 
 
 def log(msg: str) -> None:
@@ -915,6 +944,379 @@ def tier_slices(data: bytes) -> dict:
             for level in TIER_LEVELS}
 
 
+def one_pass_peak(fn):
+    """(fn(), its peak device memory in bytes above what was held before
+    it), with the peak counter reset first."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - held
+
+
+def phase_budget_coefficients(data: bytes, items, comp, card: str):
+    """Phase 18a: the one-pass peak per byte of each pass kind's units
+    (budget.py: block rows for the compress tiers, max(out_cap, input)
+    per stream for the two-pass decode) on the corpus, one pass each;
+    every one must stay within budget.PEAK_PER_BYTE. Returns the L6
+    outputs of the items, one item at a time, and the measured
+    coefficients."""
+    from libdeflate_rsx_tpu_torch import BatchDecompressor, budget
+    from libdeflate_rsx_tpu_torch.models import greedy_dynamic as gd
+    from libdeflate_rsx_tpu_torch.models import greedy_static as gs
+    from libdeflate_rsx_tpu_torch.ops.encode_v2 import BLOCK_PAD
+
+    rows = sum(-(-len(d) // SLICE) for d in items)
+    runs = (
+        ("static", lambda: gs.deflate_device_static(data, device="cuda"),
+         -(-len(data) // SLICE) * (SLICE + BLOCK_PAD)),
+        ("dynamic", lambda: gd.deflate_device_dynamic_many(items,
+                                                           device="cuda"),
+         rows * (SLICE + BLOCK_PAD)),
+        ("l6", lambda: gd.deflate_device_l6_many(items, device="cuda"),
+         rows * (gd.HIST + SLICE + BLOCK_PAD)),
+        ("decode", lambda: BatchDecompressor(
+            use_device=True, resolve="device", device="cuda")
+            .decompress_batch(comp, [ITEM] * len(comp)),
+         len(comp) * ITEM))
+    coefs = {}
+    for kind, fn, size in runs:
+        budget.PASSES.clear()
+        out, peak = one_pass_peak(fn)
+        assert budget.PASSES[kind] == 1, (kind, dict(budget.PASSES))
+        if kind == "l6":
+            assert out == comp, "L6 _many != the main path's L6 bytes"
+        if kind == "decode":
+            assert out == items, "decode of the L6 items not byte-exact"
+        coef = coefs[kind] = peak / size
+        per_input = peak / (len(data) if kind != "decode"
+                            else len(comp) * ITEM)
+        log(f"budget {kind}: one pass over the corpus peaks at "
+            f"{peak / 2**20:.1f} MiB = {coef:.2f} B per unit byte "
+            f"({size} unit bytes; {per_input:.2f} B per "
+            f"{'input' if kind != 'decode' else 'out_cap'} byte); "
+            f"PEAK_PER_BYTE {budget.PEAK_PER_BYTE[kind]} [{card}]")
+        assert coef <= budget.PEAK_PER_BYTE[kind], \
+            f"budget {kind}: measured {coef:.2f} B per byte > coefficient"
+    singles = [gd.deflate_device_l6(d, device="cuda") for d in items]
+    assert singles == comp, "L6 per item != L6 _many"
+    return singles, coefs
+
+
+def phase_budget_over(items, singles, coefs, card: str):
+    """Phase 18b: one L6 compress_batch and one device-resolve decode of
+    the corpus items repeated, each of which would need at least
+    BUDGET_OVER x the card's memory in one pass at the peaks measured
+    in phase 18a (`coefs`): 2 or more passes, every item's bytes equal
+    to its single compress, every decode byte-exact, no host
+    fallback."""
+    import torch
+    from libdeflate_rsx_tpu_torch import (BatchCompressor,
+                                          BatchDecompressor, budget)
+    from libdeflate_rsx_tpu_torch.models import greedy_dynamic as gd
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+    from libdeflate_rsx_tpu_torch.ops.encode_v2 import BLOCK_PAD
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    width = gd.HIST + SLICE + BLOCK_PAD
+    rows = [width] * sum(-(-len(d) // SLICE) for d in items)
+    reps = math.ceil(BUDGET_OVER * total / (coefs["l6"] * sum(rows)))
+    big = items * reps
+    budget.PASSES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = BatchCompressor(level=6, use_device=True,
+                          device="cuda").compress_batch(big)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    est = budget.estimate("l6", rows * reps)
+    passes = budget.PASSES["l6"]
+    assert passes >= 2, f"L6 over the budget in {passes} pass"
+    bad = [i for i, o in enumerate(out) if o != singles[i % len(items)]]
+    assert not bad, f"L6 items {bad[:10]} != their single compress"
+    need = coefs["l6"] * sum(rows) * reps
+    log(f"budget L6: {len(big)} items ({sum(map(len, big))} bytes, the "
+        f"corpus items {reps} times), one pass would need "
+        f"{need / 2**30:.1f} GiB = {need / total:.2f} x the card's "
+        f"{total / 2**30:.1f} GiB (estimate {est / 2**30:.1f} GiB): "
+        f"{passes} passes, every item equal to its single compress; "
+        f"wall {dt:.3f} s [{card}]")
+    del out, big
+
+    unit = it.cap_bucket([ITEM])
+    reps = math.ceil(BUDGET_OVER * total
+                     / (coefs["decode"] * unit * len(singles)))
+    streams = singles * reps
+    bd = BatchDecompressor(use_device=True, resolve="device", device="cuda")
+    budget.PASSES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = bd.decompress_batch(streams, [ITEM] * len(streams))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    passes = budget.PASSES["decode"]
+    assert passes >= 2, f"decode over the budget in {passes} pass"
+    bad = [i for i, g in enumerate(got) if g != items[i % len(items)]]
+    assert not bad, f"decode: streams {bad[:10]} not byte-exact"
+    assert not bd.fallbacks, f"decode: host fallbacks {dict(bd.fallbacks)}"
+    need = coefs["decode"] * unit * len(streams)
+    est = budget.estimate("decode", [unit] * len(streams))
+    log(f"budget decode: {len(streams)} streams (the L6 items {reps} "
+        f"times, {sum(map(len, got))} bytes out), resolve on the card, "
+        f"one pass would need {need / 2**30:.1f} GiB = "
+        f"{need / total:.2f} x the card's memory (estimate "
+        f"{est / 2**30:.1f} GiB): {passes} passes, byte-exact, host "
+        f"fallbacks {{}}; wall {dt:.3f} s [{card}]")
+    del got, streams
+    torch.cuda.empty_cache()
+
+
+def sharded_compress(data: bytes, items, device) -> tuple[dict, dict]:
+    """ShardedCompressor on the corpus: the static tier in the three
+    formats, the dynamic tier in deflate and the static compress_batch
+    over the items; every output through zlib. Returns ({name: bytes},
+    {name: (wall s, collective s)})."""
+    import torch
+    from libdeflate_rsx_tpu_torch.parallel import ShardedCompressor
+
+    static = ShardedCompressor(device=device)
+    dynamic = ShardedCompressor(tier="dynamic", device=device)
+    runs = {f"static {f}": (lambda f=f: static.compress(data, f), static)
+            for f in ("deflate", "zlib", "gzip")}
+    runs["dynamic deflate"] = (lambda: dynamic.compress(data), dynamic)
+    runs["static batch"] = (lambda: static.compress_batch(items), static)
+    outs, times = {}, {}
+    for name, (fn, sc) in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0, sc.collective_seconds)
+    for f in ("deflate", "zlib", "gzip"):
+        got = {"deflate": lambda b: zlib.decompress(b, -15),
+               "zlib": zlib.decompress,
+               "gzip": gzip.decompress}[f](outs[f"static {f}"])
+        assert got == data, f"sharded static {f}: round trip"
+    assert zlib.decompress(outs["dynamic deflate"], -15) == data, "dynamic"
+    for i, (d, o) in enumerate(zip(items, outs["static batch"])):
+        assert zlib.decompress(o, -15) == d, f"sharded batch item {i}"
+    return outs, times
+
+
+def sharded_decode(streams, chunks, device) -> dict:
+    """ShardedDecompressor on the zlib-6 slices with host and device
+    resolve: every stream within the 64 KiB input cap byte-exact, the
+    others None (the JAX package's contract). Returns {resolve: (wall s,
+    collective s, pass-1 launches)}."""
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+    from libdeflate_rsx_tpu_torch.parallel import ShardedDecompressor
+
+    want = [c if len(z) <= it.IN_CAP else None
+            for z, c in zip(streams, chunks)]
+    out = {}
+    for resolve in ("host", "device"):
+        dec = ShardedDecompressor(resolve=resolve, device=device)
+        launches = it.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = dec.decompress_batch(streams)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        assert not bad, f"sharded decode {resolve}: streams {bad[:10]}"
+        assert it.LAUNCHES > launches, f"sharded decode {resolve}: no pass 1"
+        out[resolve] = (dt, dec.collective_seconds, it.LAUNCHES - launches)
+    return out
+
+
+def digests(outs: dict) -> dict:
+    import hashlib
+    return {k: hashlib.sha256(b"".join(v) if isinstance(v, list) else v)
+            .hexdigest() for k, v in outs.items()}
+
+
+def phase_sharded_nccl(data: bytes, items, card: str) -> dict:
+    """Phase 19: ShardedCompressor at NCCL world size 1 on the corpus;
+    the static payload equal to deflate_device_static, the dynamic one
+    to deflate_device_dynamic, the batch to the items' static encodes.
+    Returns the outputs' digests."""
+    from libdeflate_rsx_tpu_torch.models import greedy_dynamic as gd
+    from libdeflate_rsx_tpu_torch.models import greedy_static as gs
+    from libdeflate_rsx_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"tcp://127.0.0.1:{multihost.free_port()}", 1, 0,
+                         backend="nccl")
+    outs, times = sharded_compress(data, items, "cuda")
+    assert outs["static deflate"] == gs.deflate_device_static(
+        data, device="cuda"), "sharded static != deflate_device_static"
+    assert outs["dynamic deflate"] == gd.deflate_device_dynamic(
+        data, device="cuda"), "sharded dynamic != deflate_device_dynamic"
+    assert outs["static batch"] == [gs.deflate_device_static(
+        d, device="cuda") for d in items], "sharded batch != per item"
+    for name, (wall, coll) in times.items():
+        log(f"sharded NCCL x1 {name}: {sum(map(len, items))} bytes, "
+            f"equal to the single-card tier, round-trips through zlib; "
+            f"wall {wall:.3f} s, collectives {coll * 1e3:.2f} ms [{card}]")
+    return digests(outs)
+
+
+def phase_sharded_decode_nccl(slices, chunks, card: str) -> None:
+    """Phase 21, world size 1: ShardedDecompressor over NCCL on the 256
+    zlib-6 slices, host and device resolve."""
+    import torch.distributed as dist
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+
+    for resolve, (wall, coll, n) in sharded_decode(slices, chunks,
+                                                   "cuda").items():
+        log(f"sharded decode NCCL x1, resolve {resolve}: {len(slices)} "
+            f"zlib-6 slices, {sum(len(z) <= it.IN_CAP for z in slices)} "
+            f"within the 64 KiB input cap byte-exact, the rest None; "
+            f"pass-1 launches {n}; wall {wall:.3f} s, collectives "
+            f"{coll * 1e3:.2f} ms [{card}]")
+    dist.destroy_process_group()
+
+
+def shared_card_decode(streams, chunks, reps: int) -> dict:
+    """Phase 20's decode over the memory the ranks share: the zlib-6
+    slices `reps` times through ShardedDecompressor, resolve on the
+    card; every stream within the input cap byte-exact, 2 or more
+    passes on this rank. Returns its passes, budget and wall."""
+    import torch
+    from libdeflate_rsx_tpu_torch import budget
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+    from libdeflate_rsx_tpu_torch.parallel import ShardedDecompressor
+
+    want = [c if len(z) <= it.IN_CAP else None
+            for z, c in zip(streams, chunks)]
+    dec = ShardedDecompressor(resolve="device", device="cuda")
+    limit = budget.limit("cuda")
+    budget.PASSES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = dec.decompress_batch(streams * reps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    bad = [i for i, g in enumerate(got) if g != want[i % len(want)]]
+    assert not bad, f"shared-card decode: streams {bad[:10]}"
+    passes = budget.PASSES["decode"]
+    assert passes >= 2, f"shared-card decode in {passes} pass"
+    return {"streams": len(got), "passes": passes, "limit": limit,
+            "sharers": budget.SHARERS, "wall": dt,
+            "collective": dec.collective_seconds}
+
+
+def gloo_rank(rank: int, n: int, port: int, out: str, reps: int) -> None:
+    """One of phase 20's ranks: gloo, its encoders on the one card. The
+    sharded compress of phase 19, compress_global in gzip, the sharded
+    decode of phase 21 and the decode over the shared card's memory;
+    writes digests and times to `out`."""
+    import torch.distributed as dist
+    from libdeflate_rsx_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"tcp://127.0.0.1:{port}", n, rank, backend="gloo",
+                         timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+    data = corpus()
+    items = [data[i:i + ITEM] for i in range(0, len(data), ITEM)]
+    outs, times = sharded_compress(data, items, "cuda")
+    t0 = time.perf_counter()
+    framed = multihost.compress_global(data, "gzip", device="cuda")
+    t_global = time.perf_counter() - t0
+    assert gzip.decompress(framed) == data, "compress_global gzip"
+    chunks = [data[i * SLICE:(i + 1) * SLICE] for i in range(N_SLICES)]
+    slices = [raw_z(c) for c in chunks]
+    dec = sharded_decode(slices, chunks, "cuda")
+    from libdeflate_rsx_tpu_torch import budget
+    assert budget.SHARERS == n, f"ranks on the card: {budget.SHARERS}"
+    shared = shared_card_decode(slices, chunks, reps)
+    with open(out, "w") as f:
+        json.dump({"digests": digests(outs), "times": times,
+                   "global_s": t_global, "decode": dec,
+                   "shared": shared}, f)
+    dist.destroy_process_group()
+
+
+def phase_sharded_gloo(expect: dict, slices, card: str) -> None:
+    """Phase 20 (and phase 21's 2-rank half): N_RANKS gloo ranks on the
+    one card, child processes with a timeout; each rank's bytes must
+    equal phase 19's. The shared-card decode repeats the slices until
+    the ranks would need BUDGET_OVER x the card's memory in one pass
+    each, at the one-pass peak per out_cap byte of the slices' decode
+    (resolve on the card, 64 KiB out_cap), measured here first."""
+    import torch
+    from libdeflate_rsx_tpu_torch import budget
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    budget.PASSES.clear()
+    _, peak = one_pass_peak(lambda: it.inflate_device_fused(
+        slices, it.OUT_CAP, it.IN_CAP, "cuda"))
+    assert budget.PASSES["decode"] == 1, dict(budget.PASSES)
+    coef = peak / (it.OUT_CAP * len(slices))
+    log(f"budget decode at the 64 KiB out_cap: one pass over the "
+        f"{len(slices)} slices peaks at {peak / 2**20:.1f} MiB = "
+        f"{coef:.2f} B per out_cap byte; PEAK_PER_BYTE "
+        f"{budget.PEAK_PER_BYTE['decode']} [{card}]")
+    assert coef <= budget.PEAK_PER_BYTE["decode"], \
+        f"budget decode: measured {coef:.2f} B per byte > coefficient"
+    torch.cuda.empty_cache()
+    reps = math.ceil(BUDGET_OVER * total / (coef * it.OUT_CAP * N_SLICES))
+    outdir = os.path.join(ROOT, "build", "smoke_ranks")
+    os.makedirs(outdir, exist_ok=True)
+    outs = [os.path.join(outdir, f"rank{r}.json") for r in range(N_RANKS)]
+    for o in outs:
+        if os.path.exists(o):
+            os.remove(o)
+    from libdeflate_rsx_tpu_torch.parallel.multihost import free_port
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r),
+         str(N_RANKS), str(port), outs[r], str(reps)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(N_RANKS)]
+    try:
+        for r, p in enumerate(procs):
+            text, _ = p.communicate(
+                timeout=max(1.0, RANK_TIMEOUT - (time.perf_counter() - t0)))
+            assert p.returncode == 0, f"gloo rank {r}:\n{text[-4000:]}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    dt = time.perf_counter() - t0
+    for r, o in enumerate(outs):
+        res = json.load(open(o))
+        assert res["digests"] == expect, f"gloo rank {r}: bytes != NCCL x1"
+        for name, (wall, coll) in res["times"].items():
+            log(f"sharded gloo x{N_RANKS} rank {r} {name}: equal to NCCL x1; "
+                f"wall {wall:.3f} s, collectives {coll * 1e3:.2f} ms "
+                f"[{card}]")
+        log(f"sharded gloo x{N_RANKS} rank {r} compress_global gzip: "
+            f"gunzips to the corpus; wall {res['global_s']:.3f} s [{card}]")
+        for resolve, (wall, coll, n) in res["decode"].items():
+            log(f"sharded decode gloo x{N_RANKS} rank {r}, resolve "
+                f"{resolve}: byte-exact within the input cap; pass-1 "
+                f"launches {n}; wall {wall:.3f} s, collectives "
+                f"{coll * 1e3:.2f} ms [{card}]")
+        sh = res["shared"]
+        log(f"shared-card decode gloo x{N_RANKS} rank {r}: "
+            f"{sh['streams']} streams (the slices {reps} times; "
+            f"{sh['sharers']} ranks on the card, pass budget "
+            f"{sh['limit'] / 2**30:.1f} GiB), in {sh['passes']} passes, "
+            f"byte-exact within the input cap; wall {sh['wall']:.3f} s, "
+            f"collectives {sh['collective'] * 1e3:.2f} ms [{card}]")
+    need = coef * it.OUT_CAP * N_SLICES * reps
+    log(f"shared-card decode: the {N_RANKS} ranks would need "
+        f"{need / 2**30:.1f} GiB = {need / total:.2f} x the card's "
+        f"{total / 2**30:.1f} GiB in one pass each [{card}]")
+    log(f"phase 20: {N_RANKS} gloo ranks on the one card in {dt:.1f} s "
+        f"(process start included)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -932,6 +1334,7 @@ def main() -> int:
 
     it.LAUNCHES = 0                       # the main path starts here
     items, comp = phase_compress(data)
+    comp_l6 = comp
     counts = route_counts()
     phase_decompress("L6 items", comp, items, [ITEM] * len(comp))
     counts = route_counts(counts)
@@ -980,6 +1383,23 @@ def main() -> int:
     phase_checksums(data)
     log(f"phases 13-17 (the level 0-5 tiers and the checksums): "
         f"{time.perf_counter() - t_tiers:.1f} s")
+
+    t_shard = time.perf_counter()
+    items = [data[i:i + ITEM] for i in range(0, len(data), ITEM)]
+    singles, coefs = phase_budget_coefficients(data, items, comp_l6, card)
+    phase_budget_over(items, singles, coefs, card)
+    log(f"phase 18 (the memory budget): "
+        f"{time.perf_counter() - t_shard:.1f} s")
+    t_shard = time.perf_counter()
+    expect = phase_sharded_nccl(data, items, card)
+    it.LAUNCHES = 0                     # the sharded decode starts here
+    phase_sharded_decode_nccl(slices, chunks, card)
+    launches_shard = it.LAUNCHES
+    phase_sharded_gloo(expect, slices, card)
+    log(f"pass-1 kernel launches on the sharded decode path (NCCL x1): "
+        f"{launches_shard}")
+    log(f"phases 19-21 (the sharded paths): "
+        f"{time.perf_counter() - t_shard:.1f} s")
     assert "jax" not in sys.modules, "the port imported jax"
     assert not any(m.split(".")[0] == "libdeflate_rsx_tpu"
                    for m in sys.modules), "the port imported the JAX package"
@@ -994,4 +1414,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5], int(sys.argv[6]))
+        sys.exit(0)
     sys.exit(main())

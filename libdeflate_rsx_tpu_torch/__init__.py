@@ -19,8 +19,9 @@ classes run their device tiers on a CUDA device:
 
 `ops.inflate_device_static` decodes stored and static-Huffman streams
 (csrc/inflate_static.cu); `ops.crc32_device` and `ops.adler32_device`
-compute the checksums on the device (ops/checksums.py). This package
-imports `torch` and never `jax`.
+compute the checksums on the device (ops/checksums.py). `parallel`
+shards compress and decode over a torch.distributed process group, one
+rank per card. This package imports `torch` and never `jax`.
 """
 
 from .api import (
@@ -30,6 +31,7 @@ from .api import (
     gzip_compress_bound,
     zlib_compress_bound,
 )
+from . import parallel
 from .batch import BatchCompressor, BatchDecompressor
 from .engine import Deflater
 from .engine import adler32 as adler32_host

@@ -5,7 +5,8 @@ device tiers as the JAX package does: level 0 the stored tier
 (`models/stored.py`), levels 1-3 the static-Huffman tier
 (`models/greedy_static.py`), levels 4-5 the fast dynamic tier and levels
 6-9 the L6 ratio tier (`models/greedy_dynamic.py`), whose batched forms
-take a whole batch in one pass. `BatchDecompressor` routes a device
+take a whole batch in one pass, or in as few passes as the memory
+budget of `budget.py` allows. `BatchDecompressor` routes a device
 batch as the JAX package does: fewer than SMALL_BATCH items go to the
 small-batch decoder (`ops/inflate_v2.inflate_v2`, one stream per block,
 64 KiB caps); larger batches to the two-pass decoder: the pass-1 kernel
@@ -262,15 +263,14 @@ class BatchDecompressor:
         return decoded
 
     def _decode_two_pass(self, jobs, idx, payloads, causes) -> list:
-        """The two-pass decoder: pass 1 and resolution for the batch.
-        Returns the decoded bytes per payload; sets causes[i] where there
-        are none."""
+        """The two-pass decoder: pass 1 and resolution for the batch, in
+        as few device passes as the memory budget (budget.py) allows,
+        all at the batch's out_cap. Returns the decoded bytes per
+        payload; sets causes[i] where there are none."""
         out_cap = inflate_tokens.cap_bucket(
             [min(jobs[i][1], MAX_STREAM) for i in idx])
-        tokens, stats, _ = inflate_tokens.decode_streams(
-            payloads, out_cap, MAX_STREAM, self.device)
-        decoded = inflate_tokens.resolve_streams(
-            tokens, stats, out_cap, self.resolve)
+        decoded, stats, _ = inflate_tokens.decode_in_passes(
+            payloads, out_cap, MAX_STREAM, self.device, self.resolve)
         for k, i in enumerate(idx):
             if stats[k, 0] != inflate_tokens.DONE:
                 causes[i] = "pass1"

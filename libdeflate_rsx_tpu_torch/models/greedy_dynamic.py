@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import budget
 from ..ops.encode_dynamic import (
     HIST,
     analyze_block,
@@ -24,7 +25,7 @@ from ..ops.encode_dynamic import (
     emit_pack,
 )
 from ..ops.encode_v2 import BLOCK_PAD
-from .greedy_static import MAX_STORED, _phase_end, _stored_block, split_blocks
+from .greedy_static import _phase_end, encode_window, split_blocks
 
 DEFAULT_BLOCK = 65536
 
@@ -84,19 +85,6 @@ def assemble_dynamic(device_out, headers, hdr_bits: np.ndarray,
     return parts
 
 
-def apply_stored_fallback(parts: list[bytes], data: bytes,
-                          block_size: int, valid: np.ndarray,
-                          finals: np.ndarray, num: int) -> list[bytes]:
-    """Per-block stored fallback when the dynamic stream expands."""
-    for i in range(num):
-        v = int(valid[i])
-        stored_cost = v + 5 * max(1, -(-v // MAX_STORED))
-        if len(parts[i]) > stored_cost:
-            raw = data[i * block_size: i * block_size + v]
-            parts[i] = _stored_block(raw, bool(finals[i]))
-    return parts
-
-
 def split_blocks_hist(data: bytes, block_size: int):
     """Blocks with a 32 KiB history prefix from the preceding payload:
     (arr (num, HIST + block_size + BLOCK_PAD) uint8, valid (num,),
@@ -153,35 +141,55 @@ def _encode_blocks(arr, valid, finals, block_size, device,
     return parts
 
 
-def _encode_many(datas: list[bytes], block_size: int, device,
-                 history: bool) -> list[bytes]:
-    """Batched encode of many independent buffers: all items' blocks
-    ride one analyze pass, one table step and one emit pass; history
-    (the L6 tier) never crosses item bounds."""
+def split_many(datas: list[bytes], block_size: int, history: bool,
+               final: bool = True):
+    """Every item's block rows, stacked: (metas [(first row, row count,
+    data)], arr, valid, hist_start (None without history), finals,
+    payload: each row's bytes of its item). With history (the L6 tier)
+    each row carries its own prefix from its own item; final=False
+    leaves every block non-final (SYNC-joined)."""
     metas, blocks = [], []
     row = 0
     for data in datas:
         if history:
             arr, valid, hist_start, finals, num = split_blocks_hist(
                 data, block_size)
-            payload = valid - HIST
         else:
             arr, valid, finals, num = split_blocks(data, block_size)
-            hist_start, payload = None, valid
-        metas.append((row, num, data, finals, payload))
+            hist_start = None
+        if not final:
+            finals[:] = False
+        metas.append((row, num, data))
         blocks.append((arr, valid, hist_start, finals))
         row += num
     if not metas:
-        return []
+        return [], None, None, None, None, None
     arr, valid, hist_start, finals = (
         None if parts[0] is None else np.concatenate(parts)
         for parts in zip(*blocks))
+    return (metas, arr, valid, hist_start, finals,
+            valid - HIST if history else valid)
+
+
+def _encode_many(datas: list[bytes], block_size: int, device,
+                 history: bool) -> list[bytes]:
+    """Batched encode of many independent buffers: all items' blocks
+    ride one analyze pass, one table step and one emit pass, or as few
+    passes as the memory budget (budget.py) allows, split at block
+    rows; history (the L6 tier) never crosses item bounds."""
+    metas, arr, valid, hist_start, finals, payload = split_many(
+        datas, block_size, history)
+    if not metas:
+        return []
     _phase_end("split")
-    parts = _encode_blocks(arr, valid, finals, block_size, device,
-                           hist_start)
-    outs = [b"".join(apply_stored_fallback(
-        parts[start:start + num], data, block_size, payload, fin, num))
-        for start, num, data, fin, payload in metas]
+    kind = "l6" if history else "dynamic"
+    parts = encode_window(
+        metas, payload, finals,
+        budget.passes(kind, [arr.shape[1]] * len(arr), device), block_size,
+        lambda a, b: _encode_blocks(
+            arr[a:b], valid[a:b], finals[a:b], block_size, device,
+            None if hist_start is None else hist_start[a:b]))
+    outs = [b"".join(parts[start:start + num]) for start, num, _ in metas]
     _phase_end("join")
     return outs
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import budget
 from ..ops.encode_v2 import BLOCK_PAD, assemble_blocks, encode_rows_static
 
 DEFAULT_BLOCK = 65536
@@ -66,17 +67,12 @@ def split_blocks(data: bytes, block_size: int):
     return arr, valid, finals, num
 
 
-def assemble_with_fallback(data: bytes, block_size: int, device_out,
-                           valid: np.ndarray, finals: np.ndarray,
-                           num: int) -> list[bytes]:
-    """Host assembly + per-block stored fallback when static expands.
-    device_out holds numpy arrays."""
-    rows, byte_off, rowbits, total_bits, nbytes = (
-        np.asarray(a) for a in device_out)
-    out_cap = int(block_size * _OUT_FACTOR) + 64
-    parts = assemble_blocks(rows, byte_off.astype(np.int64),
-                            rowbits.astype(np.int64), total_bits,
-                            nbytes, finals, num, out_cap)
+def apply_stored_fallback(parts: list[bytes], data: bytes,
+                          block_size: int, valid: np.ndarray,
+                          finals: np.ndarray, num: int) -> list[bytes]:
+    """Per-block stored fallback: block i (at data[i * block_size:],
+    valid[i] bytes) becomes stored blocks when its stream would expand
+    past the stored cost."""
     for i in range(num):
         v = int(valid[i])
         stored_cost = v + 5 * max(1, -(-v // MAX_STORED))
@@ -86,28 +82,69 @@ def assemble_with_fallback(data: bytes, block_size: int, device_out,
     return parts
 
 
+def _assemble(device_out, finals, num: int, block_size: int) -> list[bytes]:
+    """Host assembly of the device rows (numpy arrays): one bytes per
+    block."""
+    rows, byte_off, rowbits, total_bits, nbytes = (
+        np.asarray(a) for a in device_out)
+    out_cap = int(block_size * _OUT_FACTOR) + 64
+    return assemble_blocks(rows, byte_off.astype(np.int64),
+                           rowbits.astype(np.int64), total_bits,
+                           nbytes, finals, num, out_cap)
+
+
+def static_rows(arr, valid, finals, block_size: int, device) -> list[bytes]:
+    """Block rows encoded on `device` in one pass and assembled on the
+    host, before the stored fallback: one bytes per row."""
+    args = [torch.from_numpy(x).to(device) for x in (arr, valid, finals)]
+    _phase_end("h2d")
+    out = encode_rows_static(*args, block_size)
+    _phase_end("encode")
+    out = [t.cpu().numpy() for t in out]
+    _phase_end("d2h")
+    parts = _assemble(out, finals, len(arr), block_size)
+    _phase_end("assemble")
+    return parts
+
+
+def encode_window(metas, payload, finals, spans, block_size: int,
+                  encode) -> list[bytes]:
+    """Rows of a stacked batch of items, encoded pass by pass: for each
+    [a, b) of `spans`, encode(a, b) gives rows a..b-1 assembled, and a
+    row whose stream would expand past its stored cost becomes stored,
+    read at its block's index in its own item. metas holds (first row,
+    row count, data) per item, payload each row's bytes of its item.
+    Returns one bytes per row of the spans, in order."""
+    parts: list[bytes] = []
+    for a, b in spans:
+        got = encode(a, b)
+        for start, num, data in metas:
+            s, e = max(a, start), min(b, start + num)
+            if s < e:
+                parts += apply_stored_fallback(
+                    got[s - a:e - a], data[(s - start) * block_size:],
+                    block_size, payload[s:e], finals[s:e], e - s)
+    return parts
+
+
 def deflate_device_static(data: bytes, block_size: int = DEFAULT_BLOCK,
                           launch_rows: int | None = None,
                           device="cuda") -> bytes:
     """Whole-buffer raw-DEFLATE encode on the device (level-1 tier).
 
     launch_rows bounds how many blocks one device pass holds: a larger
-    buffer is encoded in passes of that many blocks. Blocks are
-    independent, so the bytes equal those of one pass."""
+    buffer is encoded in passes of that many blocks; without it, the
+    memory budget (budget.py) sets the passes. Blocks are independent,
+    so the bytes equal those of one pass."""
     arr, valid, finals, num = split_blocks(data, block_size)
     _phase_end("split")
-    step = num if launch_rows is None else launch_rows
-    outs = []
-    for lo in range(0, num, step):
-        args = [torch.from_numpy(x[lo:lo + step]).to(device)
-                for x in (arr, valid, finals)]
-        _phase_end("h2d")
-        out = encode_rows_static(*args, block_size)
-        _phase_end("encode")
-        outs.append([t.cpu().numpy() for t in out])
-        _phase_end("d2h")
-    device_out = [np.concatenate(parts) for parts in zip(*outs)]
-    parts = assemble_with_fallback(data, block_size, device_out, valid,
-                                   finals, num)
-    _phase_end("assemble")
+    if launch_rows is None:
+        spans = budget.passes("static", [arr.shape[1]] * num, device)
+    else:
+        spans = [(lo, min(lo + launch_rows, num))
+                 for lo in range(0, num, launch_rows)]
+    parts = encode_window(
+        [(0, num, data)], valid, finals, spans, block_size,
+        lambda a, b: static_rows(arr[a:b], valid[a:b], finals[a:b],
+                                 block_size, device))
     return b"".join(parts)

@@ -69,6 +69,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import budget
 from . import _build
 from .tokens import KIND_LIT, KIND_MATCH, KIND_SHIFT, resolve_tokens_np
 
@@ -758,11 +759,31 @@ def resolve_streams(tokens, stats, out_cap: int, where: str = "device"):
                 [(toks[i, :stats[i, 3]], int(stats[i, 1])) for i in range(n)])
 
 
+def decode_in_passes(streams: list[bytes], out_cap: int = OUT_CAP,
+                     in_cap: int | None = None, device="cuda",
+                     where: str = "device"):
+    """Pass 1 and resolution (`resolve_streams`) of `streams` in as few
+    device passes as the memory budget (budget.py) allows, split at
+    streams, all at this out_cap and in_cap: (decoded list[bytes |
+    None], stats (B, 4) int32 numpy, ok list[bool]). A stream is as
+    decoded in one pass."""
+    if in_cap is None:
+        in_cap = in_cap_bucket(streams)
+    got, stats, oks = [], [np.zeros((0, STATS), np.int32)], []
+    sizes = [max(out_cap, len(s)) for s in streams]
+    for lo, hi in budget.passes("decode", sizes, device):
+        tokens, st, ok = decode_streams(streams[lo:hi], out_cap, in_cap,
+                                        device)
+        got += resolve_streams(tokens, st, out_cap, where)
+        del tokens
+        stats.append(st)
+        oks += ok
+    return got, np.concatenate(stats), oks
+
+
 def _finished(streams, out_cap, in_cap, device, where):
-    if not streams:
-        return []
-    tokens, stats, ok = decode_streams(streams, out_cap, in_cap, device)
-    got = resolve_streams(tokens, stats, out_cap, where)
+    got, stats, ok = decode_in_passes(streams, out_cap, in_cap, device,
+                                      where)
     return [g if ok[i] and stats[i, 0] == DONE and g is not None
             and len(g) == stats[i, 1] else None for i, g in enumerate(got)]
 

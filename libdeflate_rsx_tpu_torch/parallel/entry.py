@@ -1,0 +1,132 @@
+"""The port's entry points: a single-card forward step and a multi-rank
+dry run.
+
+`entry()` returns the flagship forward step, the level-1-tier
+static-Huffman block encoder (`ops/encode_v2.encode_rows_static`) over
+a batch of blocks, with example arguments on the card (or the CPU).
+
+`dryrun_multichip(n)` starts n gloo ranks on the CPU, each a child
+process with a timeout, that run the sharded gzip round trip of the
+static tier, the dynamic tier and the sharded two-pass decode on tiny
+shapes. Run one rank by hand with
+`python -m libdeflate_rsx_tpu_torch.parallel.entry RANK N PORT`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def entry(device=None):
+    """(fn, example_args): the static-tier block encoder on 8 blocks of
+    16 KiB, on `device` (default: cuda)."""
+    from ..ops.encode_v2 import BLOCK_PAD, encode_rows_static
+
+    device = torch.device(device or "cuda")
+    block_size = 16384
+    batch = 8
+    fn = functools.partial(encode_rows_static, block_size=block_size)
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 256, 100, dtype=np.uint8)
+    row = np.tile(base, block_size // len(base) + 1)[:block_size]
+    blocks = np.zeros((batch, block_size + BLOCK_PAD), np.uint8)
+    blocks[:, :block_size] = row
+    valids = np.full(batch, block_size, np.int32)
+    finals = np.zeros(batch, bool)
+    finals[-1] = True
+    example_args = tuple(torch.from_numpy(a).to(device)
+                         for a in (blocks, valids, finals))
+    return fn, example_args
+
+
+def dryrun_multichip(n_devices: int, timeout: float = 300.0) -> None:
+    """Run the sharded paths on n_devices gloo ranks on the CPU, each a
+    child process; raises when a rank fails or outlasts `timeout`
+    seconds (every child is killed then)."""
+    from .multihost import free_port
+
+    port = free_port()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    deadline = time.monotonic() + timeout
+    errors = []
+    with contextlib.ExitStack() as stack:
+        logs = [stack.enter_context(tempfile.TemporaryFile("w+"))
+                for _ in range(n_devices)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "libdeflate_rsx_tpu_torch.parallel.entry",
+             str(rank), str(n_devices), str(port)],
+            cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=log)
+            for rank, log in enumerate(logs)]
+        try:
+            for rank, (p, log) in enumerate(zip(procs, logs)):
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+                if p.returncode != 0:
+                    log.seek(0)
+                    errors.append(f"rank {rank} exited {p.returncode}:\n"
+                                  f"{log.read()[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    if errors:
+        raise RuntimeError("dryrun_multichip failed:\n" + "\n".join(errors))
+
+
+def _check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"dryrun_multichip: {what} failed")
+
+
+def _dryrun_rank(rank: int, n_devices: int, port: int) -> None:
+    """One rank of the dry run: the gzip round trip of the static tier,
+    the dynamic tier and the sharded decode, as the JAX package's
+    dry run does on its mesh."""
+    import gzip
+    import zlib
+
+    import torch.distributed as dist
+
+    from . import ShardedCompressor, ShardedDecompressor, multihost
+
+    multihost.initialize(f"tcp://127.0.0.1:{port}", n_devices, rank,
+                         backend="gloo")
+    block_size = 1024
+    rng = np.random.default_rng(1)
+    base = rng.integers(0, 256, 37, dtype=np.uint8)
+    data = np.tile(base, (2 * n_devices * block_size) // len(base))[
+        : 2 * n_devices * block_size - 100].tobytes()
+    comp = ShardedCompressor(block_size=block_size, device="cpu")
+    framed = comp.compress(data, format="gzip")
+    _check(gzip.decompress(framed) == data, "the sharded gzip round trip")
+    dyn = ShardedCompressor(block_size=block_size, tier="dynamic",
+                            device="cpu")
+    _check(zlib.decompress(dyn.compress(data), -15) == data,
+           "the sharded dynamic-tier round trip")
+
+    rng = np.random.default_rng(2)
+    datas = []
+    for i in range(6):
+        base = rng.integers(0, 200, 40 + i, dtype=np.uint8).tobytes()
+        datas.append((base * 40)[: 900 + 60 * i])
+    streams = [zlib.compress(d, 6)[2:-4] for d in datas]
+    got = ShardedDecompressor(device="cpu").decompress_batch(streams)
+    _check(got == datas, "the sharded decode round trip")
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    _dryrun_rank(*(int(a) for a in sys.argv[1:4]))
