@@ -6,8 +6,9 @@ Usage: python3 chip_smoke.py      (from the root of a checkout; one card)
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
-2. build: the three CUDA kernels (pass 1, inflate_v2, inflate_static),
-   from csrc/ with one nvcc each, all started together (build/kernels/);
+2. build: the five CUDA kernels (pass 1, inflate_v2, inflate_static,
+   dyn_tables, assemble_rows), from csrc/ with one nvcc each, all started
+   together (build/kernels/);
 3. pass 1 (the segment route's kernels) against its plain PyTorch
    version, both on the card, at the 64 KiB out_cap: zlib streams of
    every test-corpus kind and level, multi-block, garbage, truncated and
@@ -17,7 +18,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens and stats equal; then again on the main path's 256 zlib-6
    slices, which give the kernel's timed record and its bound;
 4. compress: BatchCompressor(level=6, use_device=True) over the corpus
-   in 1 MiB items, every output checked with zlib;
+   in 1 MiB items, every output checked with zlib; the table kernel and
+   the assembly kernels must have launched (their records' launches);
 5. decompress: BatchDecompressor(use_device=True, resolve="device") on
    the compressed items and on 256 zlib-6 streams of 64 KiB slices,
    byte-exact with no host fallback;
@@ -55,7 +57,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 13. the level 0, 1 and 4 compress tiers: BatchCompressor(level=L,
    use_device=True) over the corpus in 1 MiB items (64 KiB blocks),
    every output checked with zlib, ratio and wall per level (two runs);
-   the first two items again with device="cpu", equal bytes;
+   the first two items again with device="cpu", equal bytes; at L1 and
+   L4 the assembly kernels launched, at L4 the table kernel;
 14. their two-pass decode: BatchDecompressor(use_device=True,
    resolve="device") on the L1 and L4 items and on the level-0 streams
    of the first 256 64-KiB slices, byte-exact; every host fallback is
@@ -93,7 +96,20 @@ Phases, in order; any failure raises and the script exits non-zero:
 21. ShardedDecompressor on the 256 zlib-6 slices at NCCL world size 1
    (in this process) and at N_RANKS gloo ranks (in phase 20's ranks),
    host and device resolve: every stream within the 64 KiB input cap
-   byte-exact, the others None; pass 1 launched.
+   byte-exact, the others None; pass 1 launched;
+22. the table kernel (dyn_tables) against its plain version (the Python
+   builder) on the histograms of the corpus's 259 L6 and 259 L4 blocks,
+   seeded tie-heavy histograms and edge cases: all four outputs equal;
+   then timed on the L6 blocks' histograms, with its byte bound;
+23. the assembly kernels (place_rows, join_rows) against their plain
+   versions on the card, on the device rows of an L1, an L4 and an L6
+   pass over the corpus items and a 64 KiB random item (its block
+   stored): streams, byte counts and joined bytes equal; then timed on
+   the L6 pass of the corpus items (the main path's shape), whose joined
+   streams must be phase 4's outputs: the record's ms is the two
+   launches with the size plan (and its host sync) made once outside,
+   and the whole call is logged beside it; the bound counts the row
+   bytes that hold bits, not the rows' padded width.
 
 Phases 13-21 drive the level 0-5 tiers, the checksums, the memory
 budget and the sharded paths, the port's modules with no kernel of
@@ -141,11 +157,13 @@ N_V2_MUTATED = 64       # bit-flipped streams in the stream-kernel check sets
 N_SMALL = (1, 7)        # small-batch path batch sizes
 N_STATIC = 128          # Z_FIXED slices through inflate_device_static
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM device memory, 3.35 TB/s
-KERNELS = ("inflate_tokens", "inflate_v2", "inflate_static")
+KERNELS = ("inflate_tokens", "inflate_v2", "inflate_static", "dyn_tables",
+           "assemble_rows")
 TIER_LEVELS = (0, 1, 4)     # the stored, static and dynamic compress tiers
 N_CPU_ITEMS = 2             # items also compressed with device="cpu"
 BUDGET_OVER = 1.2           # phases 18, 20: one-pass need / card memory
 N_RANKS = 2                 # phase 20: gloo ranks on the one card
+N_TIE_HISTS = 512           # phase 22: seeded tie-heavy histograms
 RANK_TIMEOUT = 300          # seconds for phase 20's ranks
 
 
@@ -770,11 +788,14 @@ def phase_compress_tiers(data: bytes):
     again on the CPU, equal bytes. Returns {level: outputs}."""
     import torch
     from libdeflate_rsx_tpu_torch import BatchCompressor
+    from libdeflate_rsx_tpu_torch.ops import assemble as asm
+    from libdeflate_rsx_tpu_torch.ops import dyn_tables as dtab
 
     items = [data[i:i + ITEM] for i in range(0, len(data), ITEM)]
     comp = {}
     for level in TIER_LEVELS:
         bc = BatchCompressor(level=level, use_device=True, device="cuda")
+        dtab.LAUNCHES = asm.LAUNCHES = 0      # this tier starts here
         walls = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -782,6 +803,9 @@ def phase_compress_tiers(data: bytes):
             out = bc.compress_batch(items)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+        launches = (dtab.LAUNCHES, asm.LAUNCHES)
+        assert (launches[0] > 0) == (level >= 4), (level, launches)
+        assert (launches[1] > 0) == (level >= 1), (level, launches)
         for i, (it_, c) in enumerate(zip(items, out)):
             assert zlib.decompress(c, -15) == it_, f"L{level} item {i}"
         t0 = time.perf_counter()
@@ -793,7 +817,8 @@ def phase_compress_tiers(data: bytes):
             f"round-trip through zlib; ratio "
             f"{len(data) / sum(map(len, out)):.4f}; wall {walls[0]:.3f} s, "
             f"again {walls[1]:.3f} s; the first {N_CPU_ITEMS} items on the "
-            f"CPU equal ({cpu_s:.2f} s)")
+            f"CPU equal ({cpu_s:.2f} s); dyn_tables launches {launches[0]}, "
+            f"assembly launches {launches[1]} (two runs)")
         comp[level] = out
     return items, comp
 
@@ -1317,12 +1342,214 @@ def phase_sharded_gloo(expect: dict, slices, card: str) -> None:
         f"(process start included)")
 
 
+def device_pass(items, level: int) -> dict:
+    """One compress pass over every block of the items at level 1, 4 or
+    6, through the encode flows' own helpers up to the assembly: the
+    items' first rows (metas), the assembly's inputs and, at levels 4
+    and 6, the table step's inputs (histograms and finals)."""
+    from libdeflate_rsx_tpu_torch.models import greedy_dynamic as gd
+    from libdeflate_rsx_tpu_torch.models import greedy_static as gs
+
+    metas, arr, valid, hist, finals = gd.split_many(items, SLICE, level >= 6)
+    if level < 4:
+        return {"metas": metas,
+                "inputs": gs.static_pass(arr, valid, finals, SLICE, "cuda")}
+    inputs, (llh, ofh) = gd.dynamic_pass(arr, valid, finals, SLICE, "cuda",
+                                         hist)
+    return {"metas": metas, "inputs": inputs,
+            "hist": (llh, ofh, inputs.finals)}
+
+
+def tie_histograms(n: int, seed: int):
+    """(ll (n, 288), of (n, 30)) uint16 tensors on the card: counts from
+    {0, 1} and {0, 1, 2}, geometric, sparse, and edge cases (an empty
+    block, one literal, all 288 symbols, counts saturated at 65,535,
+    geometric counts past the 14-bit limit, an all-zero offset row)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    ll = np.zeros((n, 288), np.int64)
+    of = np.zeros((n, 30), np.int64)
+    for k in range(n):
+        kind = k % 4
+        if kind == 0:
+            ll[k, :286] = rng.integers(0, 2, 286)
+            of[k] = rng.integers(0, 2, 30)
+        elif kind == 1:
+            ll[k, :286] = rng.integers(0, 3, 286)
+            of[k] = rng.integers(0, 3, 30)
+        elif kind == 2:
+            ll[k, :286] = rng.geometric(0.01, 286) * (rng.random(286) < 0.6)
+            of[k] = rng.geometric(0.1, 30) * (rng.random(30) < 0.5)
+        else:
+            used = rng.choice(286, rng.integers(1, 8), replace=False)
+            ll[k, used] = rng.integers(1, 4, len(used))
+    fib = [1, 1]
+    while len(fib) < 288:
+        fib.append(min(fib[-1] + fib[-2], 65535))
+    ll[0], of[0] = 0, 0
+    ll[1], of[1] = 0, 0
+    ll[1, 65] = 9
+    ll[2], of[2] = 1, 1
+    ll[3], of[3] = 65535, 65535
+    ll[4], of[4] = fib, fib[:30]
+    ll[5], of[5] = fib[::-1], 0
+    return tuple(torch.from_numpy(np.minimum(x, 65535).astype(np.int32))
+                 .to(torch.uint16).cuda() for x in (ll, of))
+
+
+def tables_vs_plain(ll, of, finals, label: str):
+    """The table kernel and its plain version on the same histograms:
+    all four outputs equal. Returns the max abs err."""
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import dyn_tables as dtab
+
+    got = dtab.build_tables(ll, of, finals)
+    want = dtab.build_tables_plain(ll, of, finals)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+        f"dyn_tables {label}: kernel != plain (max abs err {err})"
+    return err
+
+
+def phase_tables_kernel(items, card: str, l6: dict):
+    """Phase 22: the table kernel against the Python builder on the
+    corpus's L6 and L4 histograms, tie-heavy and edge histograms; then
+    its record, timed on the L6 histograms. Returns the record."""
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import dyn_tables as dtab
+
+    llh, ofh, finals = l6["hist"]
+    errs = [tables_vs_plain(llh, ofh, finals, "L6 blocks")]
+    l4 = device_pass(items, 4)
+    errs.append(tables_vs_plain(*l4["hist"], "L4 blocks"))
+    del l4
+    ll, of = tie_histograms(N_TIE_HISTS, seed=22)
+    fin = torch.arange(N_TIE_HISTS, device="cuda") % 3 == 0
+    errs.append(tables_vs_plain(ll, of, fin, "tie-heavy and edge"))
+    ms = time_cuda(lambda: dtab.build_tables(llh, ofh, finals), KERNEL_REPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dtab.build_tables_plain(llh, ofh, finals)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    b = llh.shape[0]
+    nbytes = b * ((288 + 30) * 2 + 1) + b * ((288 + 30) * 4 + dtab.HDR_CAP + 4)
+    log(f"dyn_tables vs plain: equal on the {b} L6 and {b} L4 blocks' "
+        f"histograms and {N_TIE_HISTS} tie-heavy and edge histograms, max "
+        f"abs err {max(errs)}; kernel {ms:.3f} ms per launch on the {b} L6 "
+        f"histograms (CUDA events, {KERNEL_REPS} launches); plain version "
+        f"{plain_ms:.1f} ms (host clock, one run) [{card}]")
+    return record("dyn_tables", "native/codec.c dyn_tables_c (as "
+                  "_build_tables_py)", max(errs), ms, plain_ms, nbytes)
+
+
+def assembly_vs_plain(inp, label: str):
+    """The assembly kernels and their plain versions on one pass's rows
+    (`inp`, assemble's inputs): streams, byte counts and joined bytes
+    equal. Returns (max abs err, joined bytes, sizes, nbytes)."""
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import assemble as asm
+
+    place, join, cap = inp[:8], inp[8:10] + (inp.finals,), inp.out_cap
+    out_k, nb_k = asm.place_rows(*place, cap)
+    out_p, nb_p = asm.place_rows_plain(*place, cap)
+    joined_k, sizes_k = asm.join_rows(out_k, nb_k, *join)
+    joined_p, sizes_p = asm.join_rows_plain(out_p, nb_p, *join)
+    torch.cuda.synchronize()
+    err = max(int((out_k[:, :cap].int() - out_p.int()).abs().max()),
+              int((nb_k - nb_p).abs().max()),
+              int((joined_k.int() - joined_p.int()).abs().max())
+              if joined_k.numel() == joined_p.numel() else 1 << 30)
+    assert torch.equal(out_k[:, :cap], out_p) and torch.equal(nb_k, nb_p) \
+        and (sizes_k == sizes_p).all() and torch.equal(joined_k, joined_p), \
+        f"assembly {label}: kernels != plain (max abs err {err})"
+    return err, joined_k, sizes_k, nb_k
+
+
+def assembly_bytes(inp, sizes, stored) -> int:
+    """Bytes the assembly must move, each once: the row bytes that hold
+    bits (each row's extent), the header bytes in use, the rows' offsets
+    and bit starts, each block's end bit, header bit count, EOB code,
+    final flag and raw length, the raw bytes of the stored blocks, and
+    the joined streams and their sizes written."""
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import assemble as asm
+
+    b0, end = inp.row_bit0, inp.end_bits
+    nxt = torch.cat([b0[:, 1:], end[:, None]], dim=1)
+    ext = torch.where(nxt > b0, asm.row_extents(b0, end, inp.rows.shape[2]),
+                      0)
+    hdr = (inp.hdr_bits.long() + 7) >> 3
+    b = b0.shape[0]
+    raw = int(inp.raw_len.long().cpu().numpy()[stored].sum())
+    return (int(ext.sum()) + int(hdr.sum()) + 16 * b0.numel()
+            + b * (8 + 4 + 4 + 1 + 8) + raw + int(sizes.sum()) + 8 * b)
+
+
+def phase_assembly_kernel(items, comp, card: str, l6: dict):
+    """Phase 23: the assembly kernels against their plain versions on
+    the L1, L4 and L6 rows of the corpus items with a 64 KiB random item
+    (stored), then the record on the L6 pass of the corpus items, whose
+    joined streams must be the main path's bytes. Returns the record."""
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import assemble as asm
+
+    rand = random.Random(23).randbytes(SLICE)
+    errs = []
+    for level in (1, 4, 6):
+        inp = device_pass(items + [rand], level)["inputs"]
+        err, _, sizes, nbytes = assembly_vs_plain(inp, f"L{level}")
+        stored = int((sizes < nbytes.cpu().numpy()).sum())
+        assert stored >= 1, f"L{level}: no stored block"
+        errs.append(err)
+        log(f"assembly vs plain L{level}: {inp.rows.shape[0]} blocks "
+            f"(the corpus items and a 64 KiB random item), {stored} stored; "
+            f"equal, max abs err {err}")
+        del inp
+        torch.cuda.empty_cache()
+    inp = l6["inputs"]
+    err, joined, sizes, nbytes = assembly_vs_plain(inp, "L6 corpus")
+    errs.append(err)
+    parts = asm.split_parts(joined, sizes)
+    got = [b"".join(parts[a:a + n]) for a, n in l6["metas"]]
+    assert got == comp, "the L6 pass's joined streams != phase 4's outputs"
+    place, join, cap = inp[:8], inp[8:10] + (inp.finals,), inp.out_cap
+    plan = asm.join_plan(nbytes, inp.raw_len)
+    ms = time_cuda(lambda: asm.join_planned(
+        asm.place_rows(*place, cap)[0], *join, plan), KERNEL_REPS)
+    ms_place = time_cuda(lambda: asm.place_rows(*place, cap), KERNEL_REPS)
+    ms_call = time_cuda(lambda: asm.assemble(*inp), KERNEL_REPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    asm.join_rows_plain(*asm.place_rows_plain(*place, cap), *join)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    stored = sizes < nbytes.cpu().numpy()
+    nbytes_moved = assembly_bytes(inp, sizes, stored)
+    log(f"assembly on the L6 pass of the corpus items "
+        f"({inp.rows.shape[0]} blocks, {tuple(inp.rows.shape)} rows, "
+        f"{int(stored.sum())} stored): equal to phase 4's outputs; place "
+        f"and join kernels {ms:.3f} ms per pass (the size plan made once, "
+        f"outside), place alone {ms_place:.3f} ms (both with place's zero "
+        f"fill), the whole `assemble` call with its host sync "
+        f"{ms_call:.3f} ms (CUDA events, {KERNEL_REPS} calls each); plain "
+        f"versions {plain_ms:.1f} ms (host clock, one run, on the card) "
+        f"[{card}]")
+    return record("assemble_rows", "native/assemble.c assemble_rows",
+                  max(errs), ms, plain_ms, nbytes_moved)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    from libdeflate_rsx_tpu_torch.ops import assemble as asm
+    from libdeflate_rsx_tpu_torch.ops import dyn_tables as dtab
     from libdeflate_rsx_tpu_torch.ops import inflate_static as st
     from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
     from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
@@ -1333,7 +1560,13 @@ def main() -> int:
     rec = phase_kernel(data)
 
     it.LAUNCHES = 0                       # the main path starts here
+    dtab.LAUNCHES = asm.LAUNCHES = 0
     items, comp = phase_compress(data)
+    launches_tail = (dtab.LAUNCHES, asm.LAUNCHES)
+    assert min(launches_tail) > 0, \
+        f"the L6 compress launched dyn_tables/assembly {launches_tail}"
+    log(f"dyn_tables launches on the L6 compress: {launches_tail[0]}; "
+        f"assembly launches (place, join): {launches_tail[1]}")
     comp_l6 = comp
     counts = route_counts()
     phase_decompress("L6 items", comp, items, [ITEM] * len(comp))
@@ -1400,13 +1633,23 @@ def main() -> int:
         f"{launches_shard}")
     log(f"phases 19-21 (the sharded paths): "
         f"{time.perf_counter() - t_shard:.1f} s")
+
+    t_tail = time.perf_counter()
+    l6 = device_pass(items, 6)
+    rec_dt = phase_tables_kernel(items, card, l6)
+    rec_dt["launches"] = launches_tail[0]
+    rec_asm = phase_assembly_kernel(items, comp_l6, card, l6)
+    rec_asm["launches"] = launches_tail[1]
+    del l6
+    log(f"phases 22-23 (the table and assembly kernels): "
+        f"{time.perf_counter() - t_tail:.1f} s")
     assert "jax" not in sys.modules, "the port imported jax"
     assert not any(m.split(".")[0] == "libdeflate_rsx_tpu"
                    for m in sys.modules), "the port imported the JAX package"
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)
-    print(json.dumps({"kernels": [rec, rec_v2, rec_st]}))
+    print(json.dumps({"kernels": [rec, rec_v2, rec_st, rec_dt, rec_asm]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

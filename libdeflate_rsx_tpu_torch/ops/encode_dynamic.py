@@ -12,7 +12,8 @@ of blocks:
                     selection and the histograms (device);
   build_tables_host histograms -> per-block canonical code tables and
                     serialized headers (host, the package-merge Python
-                    builder);
+                    builder: the plain version of ops/dyn_tables.py's
+                    kernel, which runs this step on the card);
   emit_pack         tokens coded through the tables and bit-packed into
                     row buffers (device).
 
@@ -303,10 +304,10 @@ def emit_pack(data_padded: torch.Tensor, ml: torch.Tensor,
 def build_tables_host(ll_hist, of_hist, finals: np.ndarray):
     """Histograms -> (ll_tabs (B, 288) u32, of_tabs (B, 30) u32, headers
     list[bytes], hdr_bits (B,) int32), as numpy, per block with the
-    Python package-merge builder. The port has no native table builder:
-    the JAX package's C builder (dyn_tables_c) gives other tables than
-    this one, and the JAX package runs this one while its C codec does
-    not build. Accepts numpy arrays or tensors."""
+    Python package-merge builder: the plain version of the table kernel
+    (ops/dyn_tables.py). The JAX package's C builder (dyn_tables_c) gives
+    other tables than this one, and the JAX package runs this one while
+    its C codec does not build. Accepts numpy arrays or tensors."""
     ll_hist, of_hist = (
         (x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x))
         .astype(np.uint32) for x in (ll_hist, of_hist))

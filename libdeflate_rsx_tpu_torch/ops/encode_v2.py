@@ -2,8 +2,9 @@
 token selection and bit packing.
 
 Port of `libdeflate_rsx_tpu/ops/encode_v2.py`: `find_matches_v2`,
-`extend_runs`, `select_tokens`, `pack_rows`, the fused level-1 encoder
-`encode_rows_static` and the host-side row placement `assemble_blocks`.
+`extend_runs`, `select_tokens`, `pack_rows` and the fused level-1
+encoder `encode_rows_static`; the JAX package's host-side row placement
+`assemble_blocks` is ops/assemble.py's place_rows.
 The JAX functions take one block and are vmapped; these take a batch of
 blocks, shape (B, s). uint32 values are held in int64. The JAX
 package's stable multi-operand sort becomes one stable `torch.sort`
@@ -15,7 +16,6 @@ a scatter.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..common import MAX_MATCH_LEN, WINDOW_SIZE
@@ -273,53 +273,15 @@ def encode_rows_static(data_padded: torch.Tensor, valid_len: torch.Tensor,
     return rows, byte_off, rowbits, total_bits, nbytes
 
 
-def assemble_blocks(rows: np.ndarray, byte_off: np.ndarray,
-                    rowbits: np.ndarray, total_bits: np.ndarray,
-                    nbytes: np.ndarray, finals: np.ndarray,
-                    num: int, out_cap: int) -> list[bytes]:
-    """Host-side placement of the row buffers into each block's stream
-    (the JAX package's numpy path; the port has no native codec).
-
-    Interior bytes of each row never collide across rows (consecutive
-    rows share at most one boundary byte), so they go in with one fancy
-    assignment; the first and last byte of each row and the 3-bit block
-    header are OR-accumulated. The EOB is the static code 0000000 (zero
-    bits: length arithmetic only); a non-final block gets the SYNC empty
-    stored block 00 00 FF FF."""
-    b, r, w = rows.shape
-    out = np.zeros((b, out_cap), dtype=np.uint8)
-    # bytes spanned by each row's bits depend on its in-byte start phase
-    cs = np.zeros((b, r), np.int64)
-    cs[:, 1:] = np.cumsum(rowbits[:, :-1], axis=1)
-    phase = (3 + cs) & 7
-    extent = np.minimum((phase + rowbits + 7) // 8, w)
-    kk = np.arange(w)[None, None, :]
-    gidx = byte_off[:, :, None] + kk                 # (B, R, W) global bytes
-    interior = (kk >= 1) & (kk < extent[:, :, None] - 1)
-    bidx = np.broadcast_to(np.arange(b)[:, None, None], gidx.shape)
-    out[bidx[interior], gidx[interior]] = rows[interior]
-    boundary = ((kk == 0) | (kk == extent[:, :, None] - 1)) & \
-        (kk < extent[:, :, None])
-    np.bitwise_or.at(out, (bidx[boundary], gidx[boundary]), rows[boundary])
-    # 3-bit block header: BFINAL | BTYPE=01 (LSB-first)
-    for i in range(num):
-        out[i, 0] |= (1 if finals[i] else 0) | 0b010
-        if not finals[i]:
-            nb = int(nbytes[i])
-            out[i, nb - 4:nb] = (0, 0, 0xFF, 0xFF)
-    return [out[i, : int(nbytes[i])].tobytes() for i in range(num)]
-
-
 def deflate_device_static_v2(data: bytes, block_size: int = 65536,
                              device="cuda") -> bytes:
     """Whole-buffer raw-DEFLATE encode on the device (level-1 tier,
     without the stored fallback of models/greedy_static)."""
-    from ..models.greedy_static import split_blocks
-    arr, valid, finals, num = split_blocks(data, block_size)
-    out = encode_rows_static(*(torch.from_numpy(x).to(device)
-                               for x in (arr, valid, finals)), block_size)
-    rows, byte_off, rowbits, total_bits, nbytes = (t.cpu().numpy()
-                                                    for t in out)
-    out_cap = int(block_size * 1.25) + 64
-    return b"".join(assemble_blocks(rows, byte_off, rowbits, total_bits,
-                                    nbytes, finals, num, out_cap))
+    from ..models.greedy_static import split_blocks, static_pass
+    from .assemble import place_rows, raise_past_cap
+    arr, valid, finals, _ = split_blocks(data, block_size)
+    inputs = static_pass(arr, valid, finals, block_size, device)
+    out, nbytes = place_rows(*inputs[:8], inputs.out_cap)
+    raise_past_cap(nbytes.cpu().numpy())
+    used = torch.arange(out.shape[1], device=out.device) < nbytes[:, None]
+    return out[used].cpu().numpy().tobytes()

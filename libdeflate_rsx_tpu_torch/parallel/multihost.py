@@ -102,7 +102,7 @@ def _compress_local(datas: list[bytes], block_size: int, tier: str,
     split = split_many(datas, block_size, False, final)
     parts = encode_rows(split, 0, len(split[1]), tier, block_size,
                         device)[0]
-    return [b"".join(parts[start:start + num]) for start, num, _ in split[0]]
+    return [b"".join(parts[start:start + num]) for start, num in split[0]]
 
 
 def compress_local_shard(inputs: list, block_size: int = 65536,

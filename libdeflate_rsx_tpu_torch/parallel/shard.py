@@ -7,10 +7,10 @@ tensors in the collectives, or gloo with CPU tensors (on the CPU, or for
 several ranks that share one card). Every rank is given the same inputs
 and returns the same outputs:
 
-- each rank encodes its contiguous share of the block rows on its
-  device, in as few passes as the memory budget allows (`budget.py`),
-  and assembles them on the host with the blocks' global indices (the
-  stored fallback reads the raw block at its place in the whole input);
+- each rank encodes and assembles its contiguous share of the block
+  rows on its device, in as few passes as the memory budget allows
+  (`budget.py`); a row's stored fallback reads the row's own raw bytes,
+  which are its block's bytes at its place in the whole input;
 - the per-row byte counts, taken after the stored fallback, are
   all-gathered; the exclusive scan of the per-rank totals gives the
   offset at which each rank's payload lands, and the payloads are
@@ -39,7 +39,7 @@ import torch.distributed as dist
 
 from .. import budget
 from ..models.greedy_dynamic import _encode_blocks, split_many
-from ..models.greedy_static import encode_window, split_blocks, static_rows
+from ..models.greedy_static import split_blocks, static_rows
 from ..ops.checksum_math import adler32_combine, crc32_combine
 from ..ops.checksums import adler32_blocks, crc32_blocks
 
@@ -132,12 +132,12 @@ class _Comm:
 
 def encode_rows(split, lo: int, hi: int, tier: str, block_size: int,
                 device, checksums: bool = False):
-    """Rows lo..hi-1 of a batch (`greedy_dynamic.split_many`) encoded on
-    `device` in budget passes and assembled, the stored fallback read at
-    each row's global block index in its item: (parts, one bytes per
+    """Rows lo..hi-1 of a batch (`greedy_dynamic.split_many`) encoded and
+    assembled on `device` in budget passes, the stored fallback applied
+    to each row's own raw bytes there: (parts, one bytes per
     row; crcs, adlers: with checksums, the CRC-32 and Adler-32 registers
     of each row's raw bytes, int64 numpy, else None)."""
-    metas, arr, valid, _, finals, _ = split
+    _, arr, valid, _, finals = split
     crcs, adlers = [], []
 
     def encode(a, b):
@@ -154,7 +154,7 @@ def encode_rows(split, lo: int, hi: int, tier: str, block_size: int,
 
     spans = [(a + lo, b + lo) for a, b in budget.passes(
         tier, [arr.shape[1]] * (hi - lo), device)]
-    parts = encode_window(metas, valid, finals, spans, block_size, encode)
+    parts = [part for a, b in spans for part in encode(a, b)]
     if not checksums:
         return parts, None, None
     cat = (lambda x: np.concatenate(x).astype(np.int64) if x
@@ -262,7 +262,7 @@ class ShardedCompressor:
             return []
         metas, rows, _ = self._run(datas, True, False)
         return [b"".join(rows[start:start + num])
-                for start, num, _ in metas]
+                for start, num in metas]
 
 
 class ShardedDecompressor:

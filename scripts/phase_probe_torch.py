@@ -5,10 +5,13 @@ Usage: python3 scripts/phase_probe_torch.py [--out FILE]
 
 Times, with the card synchronised around each phase: BatchCompressor
 cold and warm; the encode phases of a BatchCompressor run at levels 6
-and 4 (split, host-to-device, analyze, host table step, emit,
-device-to-host, host assembly, join) and at level 1 (split,
-host-to-device, encode, device-to-host, host assembly; summed over the
-items), read at the flows' own phase ends; the
+and 4 (split, host-to-device, analyze, table step, emit, assembly with
+the stored fallback and join, device-to-host copy of the joined
+streams, the items' join on the host) and at level 1 (split,
+host-to-device, encode, assembly, device-to-host; summed over the
+items), read at the flows' own phase ends: since the table step and the
+assembly run on the card (ops/dyn_tables.py, ops/assemble.py), every
+phase but split, d2h and join is device work; the
 pass-1 kernel and resolve_batch at the main path's shapes (CUDA
 events); the plain pass 1 on the 256-slice decode set (host clock);
 BatchDecompressor on both decode sets; and the device busy share of one

@@ -1,8 +1,8 @@
-"""The port on a CUDA card: the pass-1, inflate_v2 and inflate_static
-kernels against their plain PyTorch versions on the card, the slice
-through the kernels, the level 0-5 compress tiers (card bytes equal to
-CPU bytes, decoded through the kernels) and the device checksums under
-TF32 and bf16 matmul precision. Every test here needs a card and skips
+"""The port on a CUDA card: the pass-1, inflate_v2, inflate_static,
+dyn_tables and assembly kernels against their plain PyTorch versions on
+the card, the slice through the kernels, the level 0-6 compress tiers
+(card bytes equal to CPU bytes, decoded through the kernels) and the
+device checksums under TF32 and bf16 matmul precision. Every test here needs a card and skips
 without one.
 
 Run on a machine with a card (the suite's conftest.py imports jax, which
@@ -285,3 +285,131 @@ def test_checksums_on_card_exact_under_any_matmul_precision(card):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.set_float32_matmul_precision(precision)
+
+
+def _histograms(n: int, seed: int):
+    """Block-like and tie-heavy (ll (n, 288), of (n, 30)) histograms,
+    and edge cases: an empty block, one literal, all 288 symbols, counts
+    saturated at 65,535, geometric counts past the 14-bit limit."""
+    rng = np.random.default_rng(seed)
+    ll = np.zeros((n, 288), np.int64)
+    of = np.zeros((n, 30), np.int64)
+    ll[0::2, :256] = rng.geometric(0.02, (len(ll[0::2]), 256))
+    ll[0::2, 257:286] = rng.geometric(0.05, (len(ll[0::2]), 29))
+    of[0::2] = rng.geometric(0.1, (len(of[0::2]), 30))
+    ll[1::2, :286] = rng.integers(0, 3, (len(ll[1::2]), 286))
+    of[1::2] = rng.integers(0, 2, (len(of[1::2]), 30))
+    ll[0], of[0] = 0, 0
+    ll[1], of[1] = 0, 0
+    ll[1, 65] = 7
+    ll[2], of[2] = 1, 1
+    ll[3], of[3] = 65535, 65535
+    fib = [1, 1]
+    while len(fib) < 288:
+        fib.append(min(fib[-1] + fib[-2], 65535))
+    ll[4], of[4] = fib, fib[:30]
+    return (np.minimum(ll, 65535).astype(np.uint16),
+            np.minimum(of, 65535).astype(np.uint16))
+
+
+def test_dyn_tables_kernel_equals_plain_on_card(card):
+    """The table kernel's four outputs equal the Python builder's on
+    edge, block-like and tie-heavy histograms; the launch is counted."""
+    from libdeflate_rsx_tpu_torch.ops import dyn_tables as dt
+
+    ll, of = (torch.from_numpy(x.astype(np.int32)).to(torch.uint16).to(card)
+              for x in _histograms(300, seed=3))
+    finals = torch.arange(300, device=card) % 2 == 0
+    before = dt.LAUNCHES
+    got = dt.build_tables(ll, of, finals)
+    assert dt.LAUNCHES == before + 1
+    want = dt.build_tables_plain(ll, of, finals)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
+def _tier_rows(tier: str, data: bytes, card):
+    """assemble's inputs for one tier's pass on the card, from the
+    flow's own helper."""
+    from libdeflate_rsx_tpu_torch.models import greedy_dynamic as gd
+    from libdeflate_rsx_tpu_torch.models import greedy_static as gs
+
+    block = 16384
+    if tier == "static":
+        arr, valid, finals, _ = gs.split_blocks(data, block)
+        return gs.static_pass(arr, valid, finals, block, card)
+    arr, valid, hist, finals, _ = gd.split_blocks_hist(data, block)
+    return gd.dynamic_pass(arr, valid, finals, block, card, hist)[0]
+
+
+@pytest.mark.parametrize("tier", ["static", "l6"])
+def test_assembly_kernels_equal_plain_on_card(card, tier):
+    """place_rows and join_rows on the card equal their plain versions
+    (on the same card tensors): every stream byte, the byte counts, the
+    joined bytes with a random block stored; two launches counted; a
+    block past out_cap raises."""
+    from libdeflate_rsx_tpu_torch.ops import assemble as asm
+
+    data = (make_corpus("text", 16384, seed=1)
+            + make_corpus("random", 16384, seed=2)
+            + make_corpus("pattern", 30000, seed=3))
+    inputs = _tier_rows(tier, data, card)
+    place, (raw, raw_len, out_cap) = inputs[:8], inputs[8:]
+    finals = inputs.finals
+    before = asm.LAUNCHES
+    out_k, nb_k = asm.place_rows(*place, out_cap)
+    out_p, nb_p = asm.place_rows_plain(*place, out_cap)
+    torch.cuda.synchronize()
+    assert torch.equal(nb_k, nb_p)
+    assert torch.equal(out_k[:, :out_cap], out_p)
+    joined_k, sizes_k = asm.join_rows(out_k, nb_k, raw, raw_len, finals)
+    joined_p, sizes_p = asm.join_rows_plain(out_p, nb_p, raw, raw_len,
+                                            finals)
+    assert asm.LAUNCHES == before + 2
+    assert (sizes_k == sizes_p).all() and torch.equal(joined_k, joined_p)
+    parts = asm.split_parts(joined_k, sizes_k)
+    assert parts[1][0] in (0, 1) and len(parts[1]) == 16384 + 5
+    assert zlib.decompress(b"".join(parts), -15) == data
+    small = int(nb_p[0]) - 1
+    assert int(asm.place_rows(*place, small)[1][0]) == -1
+    with pytest.raises(ValueError, match="output capacity"):
+        asm.assemble(*place, raw, raw_len, small)
+
+
+@pytest.mark.parametrize("level", [1, 4, 6])
+def test_device_tiers_finish_blocks_through_the_kernels(card, level,
+                                                        monkeypatch):
+    """BatchCompressor at levels 1, 4 and 6 on the card: the CPU's bytes,
+    with the assembly kernels launched and, at levels 4 and 6, the table
+    kernel; what the flow copies off the card is the joined streams
+    (1-D uint8) and the blocks' byte counts and sizes ((2, B) int64),
+    no histogram, table or row buffer."""
+    from libdeflate_rsx_tpu_torch import BatchCompressor
+    from libdeflate_rsx_tpu_torch.ops import assemble as asm
+    from libdeflate_rsx_tpu_torch.ops import dyn_tables as dt
+
+    copied = []
+    for name in ("cpu", "numpy", "tolist", "item"):
+        orig = getattr(torch.Tensor, name)
+
+        def spy(self, *a, _orig=orig, **k):
+            if self.is_cuda:
+                copied.append((tuple(self.shape), self.dtype))
+            return _orig(self, *a, **k)
+        monkeypatch.setattr(torch.Tensor, name, spy)
+    tables, places = dt.LAUNCHES, asm.LAUNCHES
+    gpu = BatchCompressor(level=level, use_device=True,
+                          device=card).compress_batch(TIER_DATAS)
+    monkeypatch.undo()
+    assert copied and all(
+        (dtype == torch.uint8 and len(shape) == 1)
+        or (dtype == torch.int64 and len(shape) == 2 and shape[0] == 2)
+        for shape, dtype in copied), copied
+    assert asm.LAUNCHES > places
+    assert (dt.LAUNCHES > tables) == (level >= 4)
+    cpu = BatchCompressor(level=level, use_device=True,
+                          device="cpu").compress_batch(TIER_DATAS)
+    assert gpu == cpu
+    assert [zlib.decompress(c, -15) for c in gpu] == TIER_DATAS

@@ -92,21 +92,26 @@ def test_encode_rows_static_equals_jax(kind, static_rows):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_assemble_blocks_equals_jax(kind, blocks, static_rows):
-    """The port's row placement of its rows equals the JAX package's of
-    its rows (the numpy path: its native assembly does not build), and
-    every block decodes."""
+    """The port's row placement of its rows (ops/assemble.place_rows,
+    the plain version on the CPU) equals the JAX package's of its rows
+    (the numpy path: its native assembly does not build), and every
+    block decodes."""
+    from libdeflate_rsx_tpu_torch.ops.assemble import place_rows, static_layout
+
     data, (_, _, finals, num), _ = blocks[kind]
     want, got = static_rows[kind]
     out_cap = int(BLOCK * 1.25) + 64
-
-    def place(mod, rows, off, bits, total, nbytes):
-        return mod.assemble_blocks(
-            np.asarray(rows), np.asarray(off).astype(np.int64),
-            np.asarray(bits).astype(np.int64), np.asarray(total),
-            np.asarray(nbytes), finals, num, out_cap)
-
-    parts = place(pev, *(g.numpy() for g in got))
-    assert parts == place(jev, *want)
+    fin = torch.from_numpy(finals)
+    out, nbytes = place_rows(got[0], got[1],
+                             *static_layout(got[2], got[3], fin), fin,
+                             out_cap)
+    eq(nbytes, want[4])
+    parts = [out[i, :int(nbytes[i])].numpy().tobytes() for i in range(num)]
+    rows, off, bits, total, nb = want
+    assert parts == jev.assemble_blocks(
+        np.asarray(rows), np.asarray(off).astype(np.int64),
+        np.asarray(bits).astype(np.int64), np.asarray(total),
+        np.asarray(nb), finals, num, out_cap)
     assert zlib.decompress(b"".join(parts), -15) == data
 
 

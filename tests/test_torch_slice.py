@@ -119,8 +119,8 @@ def test_phase_hook_sees_every_phase_in_order(monkeypatch):
     out = BatchCompressor(level=6, use_device=True,
                           device="cpu").compress_batch(DATAS[2:])
     assert [zlib.decompress(o, -15) for o in out] == DATAS[2:]
-    assert seen == ["split", "h2d", "analyze", "tables", "emit", "d2h",
-                    "assemble", "join"]
+    assert seen == ["split", "h2d", "analyze", "tables", "emit",
+                    "assemble", "d2h", "join"]
 
 
 def test_routing_rules():
