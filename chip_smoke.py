@@ -6,9 +6,9 @@ Usage: python3 chip_smoke.py      (from the root of a checkout; one card)
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
-2. build: the five CUDA kernels (pass 1, inflate_v2, inflate_static,
-   dyn_tables, assemble_rows), from csrc/ with one nvcc each, all started
-   together (build/kernels/);
+2. build: the six CUDA kernel sources (pass 1, inflate_v2,
+   inflate_static, dyn_tables, assemble_rows, resolve), from csrc/ with
+   one nvcc each, all started together (build/kernels/);
 3. pass 1 (the segment route's kernels) against its plain PyTorch
    version, both on the card, at the 64 KiB out_cap: zlib streams of
    every test-corpus kind and level, multi-block, garbage, truncated and
@@ -22,10 +22,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    the assembly kernels must have launched (their records' launches);
 5. decompress: BatchDecompressor(use_device=True, resolve="device") on
    the compressed items and on 256 zlib-6 streams of 64 KiB slices,
-   byte-exact with no host fallback;
+   byte-exact with no host fallback, the resolve kernel launched in
+   each;
 6. the pass-1 kernel's launch count over phases 4-5 must be positive;
    the segment route's counts on the L6 items must show more than 17
-   segments and no serial rerun;
+   segments and no serial rerun; the resolve kernel's count over them
+   likewise;
 7. pass 1 alone on the 17 L6 items and on the 256 slices, timed by
    CUDA events with its byte bound and peak memory: the segment route
    and the serial route (the same kernels with sync stops off, one
@@ -62,8 +64,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 14. their two-pass decode: BatchDecompressor(use_device=True,
    resolve="device") on the L1 and L4 items and on the level-0 streams
    of the first 256 64-KiB slices, byte-exact; every host fallback is
-   "in_cap" of a stream over 1 MiB; pass 1 launched on each set; the
-   segment route's counts on the L1 and L4 items;
+   "in_cap" of a stream over 1 MiB; pass 1 and the resolve kernel
+   launched on each set; the segment route's counts on the L1 and L4
+   items;
 15. their small batches: batches of 1 and 7 L1 and L4 slices within the
    64 KiB input cap through BatchDecompressor(use_device=True),
    byte-exact with no host fallback; inflate_v2 launched, pass 1 not;
@@ -88,11 +91,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    round-tripping through zlib; walls and collective times;
 20. N_RANKS gloo ranks on the one card, child processes of this script
    (`--gloo-rank`) with a timeout: the same bytes as phase 19, and
-   compress_global in gzip gunzips to the corpus; then the 256 slices
-   repeated through ShardedDecompressor (resolve on the card) until the
-   ranks together would need BUDGET_OVER x the card's memory in one pass
-   each: the ranks count each other on the card (budget.SHARERS), each
-   runs 2 or more passes, every stream byte-exact;
+   compress_global in gzip gunzips to the corpus; then the first 16 KiB
+   of the 256 slices (each a whole 64 KiB out_cap row on the card, a
+   quarter of the bytes on the host, where each rank holds every
+   decoded stream) repeated through ShardedDecompressor (resolve on the
+   card) until the ranks together would need BUDGET_OVER x the card's
+   memory in one pass each: the ranks count each other on the card
+   (budget.SHARERS), each runs 2 or more passes, every stream
+   byte-exact;
 21. ShardedDecompressor on the 256 zlib-6 slices at NCCL world size 1
    (in this process) and at N_RANKS gloo ranks (in phase 20's ranks),
    host and device resolve: every stream within the 64 KiB input cap
@@ -109,12 +115,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    streams must be phase 4's outputs: the record's ms is the two
    launches with the size plan (and its host sync) made once outside,
    and the whole call is logged beside it; the bound counts the row
-   bytes that hold bits, not the rows' padded width.
+   bytes that hold bits, not the rows' padded width;
+24. the resolve kernel (pass 2) against its plain version on the card:
+   pass 1's tokens of the 256 slices, the 17 L6 items and 1 MiB of one
+   byte at zlib-6, the hand-built and edge columns of
+   tests/_port_corpus.py (resolve_cases), T == 0 and B == 0: outlen, ok
+   and the bytes [0, outlen) of every ok row equal; then timed on the
+   L6 items' tokens (the record) and the slices', beside the plain
+   version on the card; the bound counts the real tokens (stats[:, 3]),
+   not the padded columns.
 
 Phases 13-21 drive the level 0-5 tiers, the checksums, the memory
 budget and the sharded paths, the port's modules with no kernel of
 their own; the kernels' launches there are logged and asserted, and
-their records stay those of phases 3-12.
+their records stay those of phases 3-12 and 22-24.
 Each kernel's record (ms, plain_ms, bound_ms) is taken on its path's
 own inputs, where every input and output byte is needed: the bound is
 those bytes over the card's memory rate. The last two lines are the
@@ -158,7 +172,7 @@ N_SMALL = (1, 7)        # small-batch path batch sizes
 N_STATIC = 128          # Z_FIXED slices through inflate_device_static
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM device memory, 3.35 TB/s
 KERNELS = ("inflate_tokens", "inflate_v2", "inflate_static", "dyn_tables",
-           "assemble_rows")
+           "assemble_rows", "resolve")
 TIER_LEVELS = (0, 1, 4)     # the stored, static and dynamic compress tiers
 N_CPU_ITEMS = 2             # items also compressed with device="cpu"
 BUDGET_OVER = 1.2           # phases 18, 20: one-pass need / card memory
@@ -491,8 +505,10 @@ def phase_compress(data: bytes):
 def phase_decompress(name, streams, originals, caps):
     import torch
     from libdeflate_rsx_tpu_torch import BatchDecompressor
+    from libdeflate_rsx_tpu_torch.ops import resolve as rs
 
     bd = BatchDecompressor(use_device=True, resolve="device", device="cuda")
+    run = rs.LAUNCHES
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = bd.decompress_batch(streams, caps)
@@ -501,9 +517,11 @@ def phase_decompress(name, streams, originals, caps):
     bad = [i for i, (g, w) in enumerate(zip(got, originals)) if g != w]
     assert not bad, f"{name}: items {bad[:10]} not byte-exact"
     assert not bd.fallbacks, f"{name}: host fallbacks {dict(bd.fallbacks)}"
+    run = rs.LAUNCHES - run
+    assert run > 0, f"{name}: the resolve kernel never launched"
     log(f"decompress {name}: {len(streams)} streams, "
         f"{sum(map(len, originals))} bytes byte-exact, host fallbacks "
-        f"{dict(bd.fallbacks)}; wall {dt:.3f} s")
+        f"{dict(bd.fallbacks)}; resolve launches {run}; wall {dt:.3f} s")
 
 
 def fixed_z(data: bytes) -> bytes:
@@ -831,6 +849,7 @@ def phase_decode_tiers(data: bytes, items, comp, tier_slices):
     from libdeflate_rsx_tpu_torch import BatchDecompressor
     from libdeflate_rsx_tpu_torch.batch import MAX_STREAM
     from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+    from libdeflate_rsx_tpu_torch.ops import resolve as rs
 
     slices = [data[i * SLICE:(i + 1) * SLICE] for i in range(N_SLICES)]
     sets = (("L1 items", comp[1], items, ITEM),
@@ -840,7 +859,7 @@ def phase_decode_tiers(data: bytes, items, comp, tier_slices):
         over = sum(len(z) > MAX_STREAM for z in streams)
         bd = BatchDecompressor(use_device=True, resolve="device",
                                device="cuda")
-        it.LAUNCHES = 0                     # this path starts here
+        it.LAUNCHES = rs.LAUNCHES = 0       # this path starts here
         counts = route_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -853,11 +872,13 @@ def phase_decode_tiers(data: bytes, items, comp, tier_slices):
         assert dict(bd.fallbacks) == ({"in_cap": over} if over else {}), \
             f"decompress {name}: fallbacks {dict(bd.fallbacks)}, {over} over"
         assert it.LAUNCHES > 0, f"decompress {name}: pass 1 never launched"
+        assert rs.LAUNCHES > 0, f"decompress {name}: resolve never launched"
         log(f"decompress {name}: {len(streams)} streams "
             f"({sum(map(len, streams))} bytes), {sum(map(len, originals))} "
             f"bytes byte-exact; host fallbacks {dict(bd.fallbacks)} ({over} "
-            f"streams over {MAX_STREAM} B); pass-1 launches {it.LAUNCHES}; "
-            f"segment route {counts}; wall {dt:.3f} s")
+            f"streams over {MAX_STREAM} B); pass-1 launches {it.LAUNCHES}, "
+            f"resolve launches {rs.LAUNCHES}; segment route {counts}; wall "
+            f"{dt:.3f} s")
 
 
 def phase_small_tiers(data: bytes, tier_slices):
@@ -1204,8 +1225,19 @@ def phase_sharded_decode_nccl(slices, chunks, card: str) -> None:
     dist.destroy_process_group()
 
 
+def short_slices(data: bytes):
+    """(zlib-6 streams, their bytes) of the first CHECK_SLICE bytes of
+    each of the N_SLICES slices: phase 20's shared-card decode set. Each
+    takes a whole 64 KiB out_cap row on the card, as a full slice does,
+    but brings a quarter of its bytes to the host, where both ranks hold
+    every decoded stream."""
+    chunks = [data[i * SLICE:i * SLICE + CHECK_SLICE]
+              for i in range(N_SLICES)]
+    return [raw_z(c) for c in chunks], chunks
+
+
 def shared_card_decode(streams, chunks, reps: int) -> dict:
-    """Phase 20's decode over the memory the ranks share: the zlib-6
+    """Phase 20's decode over the memory the ranks share: the short
     slices `reps` times through ShardedDecompressor, resolve on the
     card; every stream within the input cap byte-exact, 2 or more
     passes on this rank. Returns its passes, budget and wall."""
@@ -1253,9 +1285,10 @@ def gloo_rank(rank: int, n: int, port: int, out: str, reps: int) -> None:
     chunks = [data[i * SLICE:(i + 1) * SLICE] for i in range(N_SLICES)]
     slices = [raw_z(c) for c in chunks]
     dec = sharded_decode(slices, chunks, "cuda")
+    del slices, chunks
     from libdeflate_rsx_tpu_torch import budget
     assert budget.SHARERS == n, f"ranks on the card: {budget.SHARERS}"
-    shared = shared_card_decode(slices, chunks, reps)
+    shared = shared_card_decode(*short_slices(data), reps)
     with open(out, "w") as f:
         json.dump({"digests": digests(outs), "times": times,
                    "global_s": t_global, "decode": dec,
@@ -1263,13 +1296,15 @@ def gloo_rank(rank: int, n: int, port: int, out: str, reps: int) -> None:
     dist.destroy_process_group()
 
 
-def phase_sharded_gloo(expect: dict, slices, card: str) -> None:
+def phase_sharded_gloo(expect: dict, data: bytes, slices, card: str) -> None:
     """Phase 20 (and phase 21's 2-rank half): N_RANKS gloo ranks on the
     one card, child processes with a timeout; each rank's bytes must
-    equal phase 19's. The shared-card decode repeats the slices until
-    the ranks would need BUDGET_OVER x the card's memory in one pass
-    each, at the one-pass peak per out_cap byte of the slices' decode
-    (resolve on the card, 64 KiB out_cap), measured here first."""
+    equal phase 19's. The one-pass peak per out_cap byte of the slices'
+    decode (resolve on the card, 64 KiB out_cap) must stay within the
+    budget's coefficient. The shared-card decode repeats the short
+    slices (`short_slices`) until the ranks would need BUDGET_OVER x the
+    card's memory in one pass each, at the one-pass peak per out_cap
+    byte of their decode, measured here first."""
     import torch
     from libdeflate_rsx_tpu_torch import budget
     from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
@@ -1286,6 +1321,15 @@ def phase_sharded_gloo(expect: dict, slices, card: str) -> None:
         f"{budget.PEAK_PER_BYTE['decode']} [{card}]")
     assert coef <= budget.PEAK_PER_BYTE["decode"], \
         f"budget decode: measured {coef:.2f} B per byte > coefficient"
+    short, _ = short_slices(data)
+    budget.PASSES.clear()
+    _, peak = one_pass_peak(lambda: it.inflate_device_fused(
+        short, it.OUT_CAP, it.IN_CAP, "cuda"))
+    assert budget.PASSES["decode"] == 1, dict(budget.PASSES)
+    coef = peak / (it.OUT_CAP * len(short))
+    log(f"budget decode at the 64 KiB out_cap: one pass over the "
+        f"{len(short)} short slices ({CHECK_SLICE} B each) peaks at "
+        f"{peak / 2**20:.1f} MiB = {coef:.2f} B per out_cap byte [{card}]")
     torch.cuda.empty_cache()
     reps = math.ceil(BUDGET_OVER * total / (coef * it.OUT_CAP * N_SLICES))
     outdir = os.path.join(ROOT, "build", "smoke_ranks")
@@ -1329,7 +1373,7 @@ def phase_sharded_gloo(expect: dict, slices, card: str) -> None:
                 f"{coll * 1e3:.2f} ms [{card}]")
         sh = res["shared"]
         log(f"shared-card decode gloo x{N_RANKS} rank {r}: "
-            f"{sh['streams']} streams (the slices {reps} times; "
+            f"{sh['streams']} streams (the short slices {reps} times; "
             f"{sh['sharers']} ranks on the card, pass budget "
             f"{sh['limit'] / 2**30:.1f} GiB), in {sh['passes']} passes, "
             f"byte-exact within the input cap; wall {sh['wall']:.3f} s, "
@@ -1542,6 +1586,112 @@ def phase_assembly_kernel(items, comp, card: str, l6: dict):
                   max(errs), ms, plain_ms, nbytes_moved)
 
 
+def resolve_vs_plain(tokens, out_cap: int, label: str):
+    """The resolve kernel and its plain version on the card on the same
+    columns: outlen and ok equal, and the bytes [0, outlen) of every ok
+    row. Returns (max abs err, ok rows, rows)."""
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import resolve as rs
+
+    out_k, len_k, ok_k = rs.resolve_batch(tokens, out_cap)
+    out_p, len_p, ok_p = rs.resolve_batch_plain(tokens, out_cap)
+    torch.cuda.synchronize()
+    assert out_k.shape == out_p.shape == (tokens.shape[0], out_cap), label
+    assert torch.equal(len_k, len_p), f"{label}: outlen differs"
+    assert torch.equal(ok_k, ok_p), f"{label}: ok differs"
+    err = 0
+    for i in ok_k.nonzero().flatten().tolist():
+        n = int(len_k[i])
+        if n:
+            err = max(err, int((out_k[i, :n].int() - out_p[i, :n].int())
+                               .abs().max()))
+    assert err == 0, f"{label}: bytes differ, max abs err {err}"
+    return err, int(ok_k.sum()), tokens.shape[0]
+
+
+def pass1_columns(streams, out_cap: int):
+    """Pass 1's tokens of the streams as the main path hands them to
+    resolve (the strided view of its (B, out_cap) buffer, cut to the
+    longest column), with its stats."""
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+
+    args = it.pack_streams(streams, it.in_cap_bucket(streams), "cuda")[:3]
+    tok, st = it.pass1(*args, out_cap)
+    stats = st.cpu().numpy()
+    return tok[:, :max(1, int(stats[:, 3].max()))], stats
+
+
+def resolve_bytes(stats, outlen) -> int:
+    """Bytes resolve must move: each real token read once (stats[:, 3]),
+    each output byte up to outlen written once, outlen and ok."""
+    return 4 * int(stats[:, 3].sum()) + int(outlen.sum()) \
+        + 5 * stats.shape[0]
+
+
+def phase_resolve_kernel(comp, slices, card: str):
+    """Phase 24: the resolve kernel against its plain version on the
+    card: pass 1's tokens of the 256 zlib-6 slices, the 17 L6 items and
+    1 MiB of one byte at zlib-6; the hand-built columns of
+    tests/test_torch_resolve.py and the edge columns (tests/_port_corpus.py
+    resolve_cases: a 1 MiB dist-1 run, periodic chains at d 2..33, d
+    32,768 across windows, matches before the start, sums at and past
+    out_cap, NOP and kind-3 tokens anywhere, seeded random columns with
+    both); T == 0 and B == 0. Then the record on the L6 items' tokens
+    (the main path's decode), with the 256 slices beside it. Returns the
+    record."""
+    import numpy as np
+    import torch
+    from _port_corpus import resolve_cases
+    from libdeflate_rsx_tpu_torch.ops import resolve as rs
+
+    errs = []
+    run = rs.LAUNCHES
+    one = bytes([0x5A]) * ITEM
+    sets = (("256 zlib-6 slices", slices, SLICE),
+            (f"{len(comp)} L6 items", comp, ITEM),
+            ("1 MiB of one byte at zlib-6", [raw_z(one)], ITEM))
+    for label, streams, cap in sets:
+        tok, stats = pass1_columns(streams, cap)
+        err, n_ok, n = resolve_vs_plain(tok, cap, label)
+        errs.append(err)
+        log(f"resolve vs plain on pass 1's tokens of the {label}: equal on "
+            f"{n} rows ({n_ok} ok), {int(stats[:, 3].sum())} tokens, "
+            f"max abs err {err}")
+    for label, cols, cap in resolve_cases():
+        tok = torch.from_numpy(np.stack(cols)).cuda()
+        err, n_ok, n = resolve_vs_plain(tok, cap, label)
+        errs.append(err)
+        log(f"resolve vs plain, {label}: equal on {n} columns ({n_ok} ok) "
+            f"of {tok.shape[1]} tokens at out_cap {cap}")
+    for shape in ((3, 0), (0, 5)):
+        tok = torch.zeros(shape, dtype=torch.int32, device="cuda")
+        errs.append(resolve_vs_plain(tok, SLICE, f"shape {shape}")[0])
+    out, outlen, ok = rs.resolve_batch(
+        torch.zeros((3, 0), dtype=torch.int32, device="cuda"), SLICE)
+    assert outlen.tolist() == [0, 0, 0] and bool(ok.all())
+    log(f"resolve vs plain, T == 0 and B == 0: equal; kernel launches in "
+        f"this phase {rs.LAUNCHES - run}")
+
+    times = {}
+    for label, streams, cap in sets[:2]:
+        tok, stats = pass1_columns(streams, cap)
+        ms = time_cuda(lambda: rs.resolve_batch(tok, cap), KERNEL_REPS)
+        plain_ms = time_cuda(lambda: rs.resolve_batch_plain(tok, cap),
+                             KERNEL_REPS)
+        _, outlen, _ = rs.resolve_batch(tok, cap)
+        nbytes = resolve_bytes(stats, outlen.cpu().numpy())
+        times[label] = (ms, plain_ms, nbytes)
+        log(f"resolve on the {label}: kernel {ms:.3f} ms, plain version "
+            f"{plain_ms:.3f} ms on the card (CUDA events, {KERNEL_REPS} "
+            f"calls each); {int(stats[:, 3].sum())} tokens (max "
+            f"{int(stats[:, 3].max())} a column), {int(outlen.sum())} bytes "
+            f"out; bound {nbytes / HBM_BYTES_PER_MS:.6f} ms ({nbytes} "
+            f"bytes) [{card}]")
+    ms, plain_ms, nbytes = times[sets[1][0]]
+    return record("resolve", "ops/resolve.py:47", max(errs), ms, plain_ms,
+                  nbytes)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1553,13 +1703,14 @@ def main() -> int:
     from libdeflate_rsx_tpu_torch.ops import inflate_static as st
     from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
     from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
+    from libdeflate_rsx_tpu_torch.ops import resolve as rs
 
     card = phase_card()
     phase_build()
     data = corpus()
     rec = phase_kernel(data)
 
-    it.LAUNCHES = 0                       # the main path starts here
+    it.LAUNCHES = rs.LAUNCHES = 0         # the main path starts here
     dtab.LAUNCHES = asm.LAUNCHES = 0
     items, comp = phase_compress(data)
     launches_tail = (dtab.LAUNCHES, asm.LAUNCHES)
@@ -1577,8 +1728,11 @@ def main() -> int:
     phase_decompress("zlib-6 slices", slices, chunks, [SLICE] * N_SLICES)
     counts_sl = route_counts(counts_sl)
     rec["launches"] = it.LAUNCHES
+    launches_rs = rs.LAUNCHES
     assert rec["launches"] > 0, "the main path never launched pass 1"
-    log(f"pass-1 kernel launches on the main path: {rec['launches']}")
+    assert launches_rs > 0, "the main path never launched resolve"
+    log(f"pass-1 kernel launches on the main path: {rec['launches']}; "
+        f"resolve kernel launches: {launches_rs}")
     log(f"segment route on the {len(comp)} L6 items: {counts}; on the "
         f"{N_SLICES} slices: {counts_sl}")
     assert counts["SEGMENTS"] > len(comp) and counts["RERUNS"] == 0, counts
@@ -1628,7 +1782,7 @@ def main() -> int:
     it.LAUNCHES = 0                     # the sharded decode starts here
     phase_sharded_decode_nccl(slices, chunks, card)
     launches_shard = it.LAUNCHES
-    phase_sharded_gloo(expect, slices, card)
+    phase_sharded_gloo(expect, data, slices, card)
     log(f"pass-1 kernel launches on the sharded decode path (NCCL x1): "
         f"{launches_shard}")
     log(f"phases 19-21 (the sharded paths): "
@@ -1643,13 +1797,19 @@ def main() -> int:
     del l6
     log(f"phases 22-23 (the table and assembly kernels): "
         f"{time.perf_counter() - t_tail:.1f} s")
+    t_tail = time.perf_counter()
+    rec_rs = phase_resolve_kernel(comp_l6, slices, card)
+    rec_rs["launches"] = launches_rs
+    log(f"phase 24 (the resolve kernel): "
+        f"{time.perf_counter() - t_tail:.1f} s")
     assert "jax" not in sys.modules, "the port imported jax"
     assert not any(m.split(".")[0] == "libdeflate_rsx_tpu"
                    for m in sys.modules), "the port imported the JAX package"
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)
-    print(json.dumps({"kernels": [rec, rec_v2, rec_st, rec_dt, rec_asm]}))
+    print(json.dumps({"kernels": [rec, rec_v2, rec_st, rec_dt, rec_asm,
+                                  rec_rs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

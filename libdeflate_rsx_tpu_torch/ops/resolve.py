@@ -1,22 +1,49 @@
-"""Pass 2 of the two-pass decoder: LZ copy resolution by pointer doubling.
+"""Pass 2 of the two-pass decoder: LZ copy resolution.
 
-Port of `libdeflate_rsx_tpu/ops/resolve.py::resolve_batch_jax`, as plain
-PyTorch on either device. For each stream, every output position finds
-the token that covers it (a binary search in the token start offsets),
-points at its source (`p - dist` inside a match, itself at a literal),
-and pointer doubling walks every position to its root literal in
-ceil(log2(chain depth)) gather rounds. A final gather reads the bytes.
+Port of `libdeflate_rsx_tpu/ops/resolve.py::resolve_batch_jax` (whose
+host counterpart is the JAX package's `native/codec.c`
+`resolve_tokens_c`). `resolve_batch` launches the CUDA kernel
+`csrc/resolve.cu` for CUDA tensors and runs `resolve_batch_plain` for
+CPU tensors. The kernel scans each stream's token extents, resolves
+every 4 KiB window of output of every stream at once (a source before
+the window becomes a marker), then walks each stream's windows in order
+and replaces the markers by their final bytes (the source notes the
+design and its bound).
+
+`resolve_batch_plain` is plain PyTorch on either device: every output
+position finds the token that covers it (a binary search in the token
+start offsets), points at its source (`p - dist` inside a match, itself
+at a literal), and pointer doubling walks every position to its root
+literal in ceil(log2(chain depth)) gather rounds. A final gather reads
+the bytes.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
+from . import _build
 from .tokens import KIND_SHIFT
 
-__all__ = ["resolve_batch"]
+__all__ = ["resolve_batch", "resolve_batch_plain"]
+
+#: kernel launches made by `resolve_batch` (the plain version does not
+#: count)
+LAUNCHES = 0
+
+
+def _lib():
+    lib = _build.load("resolve")
+    if lib.ldrsx_resolve.argtypes is None:
+        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.ldrsx_resolve_scratch.argtypes = [i, i, q]
+        lib.ldrsx_resolve_scratch.restype = ctypes.c_int64
+        lib.ldrsx_resolve.argtypes = [p, q, i, i, q, p, p, q, p, p, p]
+        lib.ldrsx_resolve.restype = ctypes.c_int
+    return lib
 
 
 def resolve_batch(tokens: torch.Tensor, out_cap: int):
@@ -24,10 +51,45 @@ def resolve_batch(tokens: torch.Tensor, out_cap: int):
     ok (B,) bool), on the tokens' device.
 
     `ok` is False when a stream's tokens write past out_cap or a match
-    reaches before the start of its output. Positions past a stream's
-    outlen hold unspecified bytes; callers slice to outlen. NOP tokens
-    (kind 0) may appear anywhere and emit nothing.
+    reaches before the start of its output. Bytes at or past a stream's
+    outlen, and every byte of a row that is not ok, are unspecified;
+    callers slice to outlen. NOP tokens (kind 0) and kind 3 may appear
+    anywhere and emit nothing. A CUDA tensor launches the kernel, with
+    no host sync; the columns may be a strided view (row stride only).
     """
+    global LAUNCHES
+    if tokens.dim() != 2 or out_cap < 0:
+        raise ValueError("resolve_batch: tokens must be (B, T), out_cap >= 0")
+    if tokens.device.type == "cpu":
+        return resolve_batch_plain(tokens, out_cap)
+    tokens = tokens.to(torch.int32)
+    b, t = tokens.shape
+    if t > 1 and tokens.stride(1) != 1:
+        tokens = tokens.contiguous()
+    dev = tokens.device
+    out = torch.empty((b, out_cap), dtype=torch.uint8, device=dev)
+    outlen = torch.empty(b, dtype=torch.int32, device=dev)
+    ok = torch.empty(b, dtype=torch.bool, device=dev)
+    if b == 0:
+        return out, outlen, ok
+    lib = _lib()
+    scratch = torch.empty(lib.ldrsx_resolve_scratch(b, t, out_cap),
+                          dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.ldrsx_resolve(tokens.data_ptr(), tokens.stride(0), t, b,
+                               out_cap, scratch.data_ptr(), out.data_ptr(),
+                               out_cap, outlen.data_ptr(), ok.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"resolve kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out, outlen, ok
+
+
+def resolve_batch_plain(tokens: torch.Tensor, out_cap: int):
+    """Plain version of the kernel, on any device: `resolve_batch`'s
+    function by a binary-search covering map and pointer doubling
+    (module docstring)."""
     tokens = tokens.to(torch.int32)
     if tokens.shape[1] == 0:
         tokens = torch.zeros((tokens.shape[0], 1), dtype=torch.int32,

@@ -12,8 +12,8 @@ host-to-device, encode, assembly, device-to-host; summed over the
 items), read at the flows' own phase ends: since the table step and the
 assembly run on the card (ops/dyn_tables.py, ops/assemble.py), every
 phase but split, d2h and join is device work; the
-pass-1 kernel and resolve_batch at the main path's shapes (CUDA
-events); the plain pass 1 on the 256-slice decode set (host clock);
+pass-1 kernel, and the resolve kernel beside its plain version on the
+card, at the main path's shapes (CUDA events); the plain pass 1 on the 256-slice decode set (host clock);
 BatchDecompressor on both decode sets; and the device busy share of one
 decompress and one compress from torch.profiler. Each line is printed,
 and copied to FILE when given. Needs one CUDA card; the corpus and the
@@ -118,7 +118,8 @@ def probe(say) -> int:
     import chip_smoke as cs
     from libdeflate_rsx_tpu_torch import BatchCompressor, BatchDecompressor
     from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
-    from libdeflate_rsx_tpu_torch.ops.resolve import resolve_batch
+    from libdeflate_rsx_tpu_torch.ops.resolve import (resolve_batch,
+                                                       resolve_batch_plain)
 
     if not torch.cuda.is_available():
         print("phase_probe_torch: no CUDA device", file=sys.stderr)
@@ -153,8 +154,14 @@ def probe(say) -> int:
         f"(max tokens {int(st17[:, 3].max())})")
     n256, n17 = int(st256[:, 3].max()), int(st17[:, 3].max())
     r256 = cs.time_cuda(lambda: resolve_batch(tok256[:, :n256], BLOCK), 5)
-    r17 = cs.time_cuda(lambda: resolve_batch(tok17[:, :n17], cs.ITEM), 3)
-    say(f"resolve 256x64KiB {r256:.3f} ms; resolve 17x1MiB {r17:.3f} ms")
+    r17 = cs.time_cuda(lambda: resolve_batch(tok17[:, :n17], cs.ITEM), 5)
+    p256 = cs.time_cuda(lambda: resolve_batch_plain(tok256[:, :n256], BLOCK),
+                        5)
+    p17 = cs.time_cuda(lambda: resolve_batch_plain(tok17[:, :n17], cs.ITEM),
+                       5)
+    say(f"resolve kernel 256x64KiB {r256:.3f} ms, 17x1MiB {r17:.3f} ms; "
+        f"plain version on the card 256x64KiB {p256:.3f} ms, 17x1MiB "
+        f"{p17:.3f} ms")
     t0 = time.perf_counter()
     tp, sp = it.pass1_plain(*a256, BLOCK)
     plain = lap(t0)[0]

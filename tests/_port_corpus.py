@@ -300,3 +300,220 @@ def edge_rows(cases):
         row = (z + tail)[:IN_CAP]
         buf[i, :len(row)] = np.frombuffer(row, np.uint8)
     return lens, buf.view("<i4")
+
+
+# ------------------------------------------------- pass-2 token columns
+# Hand-built token columns (the ops/tokens.py format) for LZ copy
+# resolution: the cases of tests/test_torch_resolve.py, shared with the
+# card's checks of the resolve kernel (chip_smoke.py phase 24 and
+# tests/test_torch_cuda.py). Each builder returns (columns, out_cap).
+
+KIND_SHIFT = 29
+NOP = 0
+KIND3 = 3 << KIND_SHIFT          # a kind no decoder emits; it emits nothing
+
+
+def lit(b):
+    return (1 << KIND_SHIFT) | (b & 0xFF)
+
+
+def match(length, dist):
+    return (2 << KIND_SHIFT) | ((dist - 1) << 8) | (length - 3)
+
+
+def col(tokens, T):
+    """A column of T tokens: these, then NOPs."""
+    import numpy as np
+
+    a = np.full(T, NOP, np.int32)
+    a[: len(tokens)] = np.array(tokens, np.int32)
+    return a
+
+
+def overlap_columns():
+    """Literals, overlapping copies and NOPs."""
+    cases = [
+        [lit(i & 0xFF) for i in range(40)],
+        [lit(65), lit(66), lit(67), match(5, 3)],
+        [lit(1), match(258, 1)],
+        [lit(7), lit(8), match(4, 2), match(10, 6)],
+        [lit(9)] * 30 + [match(20, 30), match(17, 5)],
+        [lit(10), NOP, NOP, lit(11), NOP, match(3, 2), NOP],
+    ]
+    return [col(c, 300) for c in cases], 512
+
+
+def offset_columns(dist):
+    """One period of literals, then copies at that distance."""
+    toks = [lit((i * 37 + dist) & 0xFF) for i in range(dist)]
+    toks += [match(258, dist)] * 6 + [match(17, dist)]
+    return [col(toks, len(toks) + 8)], 4096
+
+
+def deep_chain_columns():
+    """200 matches reaching back into each other, literals between."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    toks = [lit(int(b)) for b in rng.integers(0, 256, 64)]
+    pos = 64
+    for _ in range(200):
+        length = int(rng.integers(3, 40))
+        toks.append(match(length, min(int(rng.integers(1, pos)), 32768)))
+        pos += length
+        if rng.random() < 0.3:
+            toks.append(lit(int(rng.integers(0, 256))))
+            pos += 1
+    return [col(toks, len(toks))], pos + 64
+
+
+def bad_columns():
+    """A good column, a match before the start, output past out_cap and
+    output ending at out_cap."""
+    return [col([lit(1), lit(2), match(3, 2)], 16),
+            col([lit(1), match(3, 2)], 16),                # dist 2 > pos 1
+            col([lit(0)] * 10 + [match(258, 1)] * 3, 16),
+            col([lit(5)] * 4 + [match(12, 4)], 16)], 16    # outlen == cap
+
+
+def random_columns(seed, n=16, cap=2048, T=1024, ntok=900, kind3=False):
+    """Seeded columns of up to ntok literals, matches and NOPs (and
+    kind-3 tokens) filling most of out_cap."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cols = []
+    for _ in range(n):
+        toks, pos = [], 0
+        while pos < cap - 300 and len(toks) < ntok:
+            if pos < 4 or rng.random() < 0.45:
+                toks.append(lit(int(rng.integers(0, 256))))
+                pos += 1
+            elif rng.random() < 0.1:
+                toks.append(NOP)
+            elif kind3 and rng.random() < 0.1:
+                toks.append(KIND3 | int(rng.integers(0, 1 << 29)))
+            else:
+                length = int(rng.integers(3, 120))
+                toks.append(match(length, int(rng.integers(
+                    1, min(pos, 32768) + 1))))
+                pos += length
+        cols.append(col(toks, T))
+    return cols, cap
+
+
+def dist1_run_columns(cap=1 << 20):
+    """1 MiB of one byte, as zlib-6 codes it: a literal, then matches of
+    258 at distance 1 (the chain is as deep as the matches are many),
+    ending exactly at out_cap."""
+    n, rest = divmod(cap - 1, 258)
+    toks = [lit(0x5A)] + [match(258, 1)] * n
+    if rest:
+        toks.append(match(rest, 1) if rest >= 3 else lit(0x5A))
+    return [col(toks, len(toks))], cap
+
+
+def periodic_columns(cap=65536):
+    """Periodic chains at distances 2..33: one period of literals, then
+    matches of 258 at that distance to near out_cap."""
+    cols = []
+    for d in range(2, 34):
+        toks = [lit((7 * i + d) & 0xFF) for i in range(d)]
+        toks += [match(258, d)] * ((cap - d) // 258)
+        cols.append(col(toks, 300))
+    return cols, cap
+
+
+def far_columns(cap=1 << 18):
+    """Matches at distance 32,768 that cross several windows: 32 KiB of
+    seeded literals, then long and short matches at the largest
+    distance, mixed with literals and matches at other distances."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    first = [lit(int(b)) for b in rng.integers(0, 256, 32768)]
+    plain = first + [match(258, 32768)] * 400
+    mixed = list(first)
+    pos = 32768
+    while pos < cap - 600:
+        r = rng.random()
+        if r < 0.5:
+            length = int(rng.integers(3, 259))
+            mixed.append(match(length, 32768))
+        elif r < 0.8:
+            length = int(rng.integers(3, 259))
+            mixed.append(match(length, int(rng.integers(1, 32769))))
+        else:
+            length = 1
+            mixed.append(lit(int(rng.integers(0, 256))))
+        pos += length
+    T = max(len(plain), len(mixed))
+    return [col(plain, T), col(mixed, T)], cap
+
+
+def before_start_columns():
+    """Matches that reach before the start of the output: first, in a
+    later window, and one byte too far; and a column that reaches exactly
+    to the start."""
+    far = [lit(3)] * 20000 + [match(10, 20001)]
+    ok = [lit(3)] * 20000 + [match(10, 20000)]
+    cols = [[match(3, 1)], far, ok, [lit(1)] * 5 + [match(258, 6)]]
+    return [col(c, len(far)) for c in cols], 65536
+
+
+def past_cap_columns(cap=65536):
+    """Sums at out_cap, one byte past it (by a literal and by a match's
+    last byte) and far past it."""
+    n = (cap - 1) // 258
+    at = [lit(1)] + [match(258, 1)] * n + [lit(2)] * (cap - 1 - 258 * n)
+    assert len(at) - n >= 3
+    cols = [at, at + [lit(9)], at[:-2] + [match(3, 1)],
+            [lit(1)] + [match(258, 1)] * (2 * cap // 258)]
+    T = max(map(len, cols))
+    return [col(c, T) for c in cols], cap
+
+
+def nop_kind3_columns(seed=8):
+    """NOPs and kind-3 tokens anywhere: first, last, between matches and
+    in runs, in columns that cross several windows."""
+    import numpy as np
+
+    cols, cap = random_columns(seed, n=8, cap=1 << 17, T=40000, ntok=39990,
+                               kind3=True)
+    rng = np.random.default_rng(seed)
+    out = []
+    for c in cols:
+        k = int(rng.integers(100, 1000))
+        out.append(np.concatenate([
+            [KIND3 | 0x1FF], c[:k], [NOP, KIND3, NOP, KIND3 | 0x3FF, NOP],
+            c[k:], [KIND3]]).astype(np.int32))
+    return out, cap
+
+
+def _resolve_builders():
+    b = {"literals and overlaps": overlap_columns}
+    for d in (1, 2, 3, 4, 7, 8, 18, 31, 32, 64):
+        b[f"offset {d}"] = lambda d=d: offset_columns(d)
+    b["deep chain"] = deep_chain_columns
+    b["bad cases"] = bad_columns
+    for seed in (3, 4, 5):
+        b[f"random seed {seed}"] = lambda seed=seed: random_columns(seed)
+    b.update({"dist-1 run of 1 MiB": dist1_run_columns,
+              "periodic d 2..33": periodic_columns,
+              "d 32768 across windows": far_columns,
+              "before the start": before_start_columns,
+              "past out_cap": past_cap_columns,
+              "NOP and kind 3": nop_kind3_columns})
+    for seed in (30, 31):
+        b[f"random kind 3 seed {seed}"] = lambda seed=seed: random_columns(
+            seed, cap=1 << 16, T=12000, ntok=11990, kind3=True)
+    return b
+
+
+#: label -> builder of (columns, out_cap), every hand-built case above
+RESOLVE_CASES = _resolve_builders()
+
+
+def resolve_cases():
+    """[(label, columns, out_cap)] of every hand-built case above."""
+    return [(label, *build()) for label, build in RESOLVE_CASES.items()]

@@ -1,6 +1,6 @@
 """The port on a CUDA card: the pass-1, inflate_v2, inflate_static,
-dyn_tables and assembly kernels against their plain PyTorch versions on
-the card, the slice through the kernels, the level 0-6 compress tiers
+dyn_tables, assembly and resolve kernels against their plain PyTorch
+versions on the card, the slice through the kernels, the level 0-6 compress tiers
 (card bytes equal to CPU bytes, decoded through the kernels) and the
 device checksums under TF32 and bf16 matmul precision. Every test here needs a card and skips
 without one.
@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from _port_corpus import edge_cases, edge_rows, make_corpus, mutated_streams
+from _port_corpus import (RESOLVE_CASES, edge_cases, edge_rows, make_corpus,
+                          mutated_streams)
 
 pytestmark = pytest.mark.cuda
 
@@ -413,3 +414,70 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
                           device="cpu").compress_batch(TIER_DATAS)
     assert gpu == cpu
     assert [zlib.decompress(c, -15) for c in gpu] == TIER_DATAS
+
+
+def _resolve_equal(tokens, out_cap):
+    """The resolve kernel against its plain version on the same columns:
+    outlen and ok equal, and the bytes [0, outlen) of every ok row."""
+    from libdeflate_rsx_tpu_torch.ops import resolve as rs
+
+    before = rs.LAUNCHES
+    out, outlen, ok = rs.resolve_batch(tokens, out_cap)
+    assert rs.LAUNCHES == before + (tokens.shape[0] > 0)
+    pout, plen, pok = rs.resolve_batch_plain(tokens, out_cap)
+    torch.cuda.synchronize()
+    assert out.shape == pout.shape == (tokens.shape[0], out_cap)
+    assert torch.equal(outlen, plen) and torch.equal(ok, pok)
+    for i in ok.nonzero().flatten().tolist():
+        n = int(outlen[i])
+        assert torch.equal(out[i, :n], pout[i, :n]), i
+    return ok
+
+
+@pytest.mark.parametrize("case", list(RESOLVE_CASES))
+def test_resolve_kernel_equals_plain_on_card(card, case):
+    cols, out_cap = RESOLVE_CASES[case]()
+    _resolve_equal(torch.from_numpy(np.stack(cols)).to(card), out_cap)
+
+
+@pytest.mark.parametrize("out_cap", [65536, 1 << 20])
+def test_resolve_kernel_on_pass1_tokens(card, out_cap):
+    """Pass 1's tokens as the decoder hands them over (a strided view of
+    its buffer), every well-formed stream resolved to its bytes; T == 0
+    and B == 0."""
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+    from libdeflate_rsx_tpu_torch.ops.resolve import resolve_batch
+
+    datas = [make_corpus(k, 40000 + 999 * i, seed=i)
+             for i, k in enumerate(("text", "pattern", "random", "zeros",
+                                    "periodic:7", "text"))]
+    streams = [_z(d, lvl) for d, lvl in zip(datas, (6, 9, 1, 6, 6, 0))]
+    streams += [_z(b"\x5a" * (1 << 20))]
+    args = it.pack_streams(streams, it.in_cap_bucket(streams), card)[:3]
+    tok, st = it.pass1(*args, out_cap)
+    ntok = int(st[:, 3].max())
+    ok = _resolve_equal(tok[:, :ntok], out_cap)
+    out, outlen, _ = resolve_batch(tok[:, :ntok], out_cap)
+    for i, d in enumerate(datas + [b"\x5a" * (1 << 20)]):
+        if len(d) <= out_cap:
+            assert bool(ok[i]) and out[i, :len(d)].cpu().numpy().tobytes() \
+                == d
+    for shape in ((3, 0), (0, 5)):
+        _resolve_equal(torch.zeros(shape, dtype=torch.int32, device=card),
+                       out_cap)
+
+
+def test_two_pass_decode_goes_through_the_resolve_kernel(card):
+    from libdeflate_rsx_tpu_torch import BatchDecompressor
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+    from libdeflate_rsx_tpu_torch.ops import resolve as rs
+
+    datas = [make_corpus(("text", "pattern", "random", "periodic:7")[i % 4],
+                         20000 + 4099 * i, seed=i) for i in range(10)]
+    streams = [zlib.compress(d, 6) for d in datas]
+    before, pass1 = rs.LAUNCHES, it.LAUNCHES
+    bd = BatchDecompressor("zlib", use_device=True, resolve="device",
+                           device=card)
+    assert bd.decompress_batch(streams, [len(d) for d in datas]) == datas
+    assert not bd.fallbacks
+    assert rs.LAUNCHES > before and it.LAUNCHES > pass1

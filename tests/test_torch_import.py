@@ -57,7 +57,8 @@ def test_import_leaves_jax_out():
     assert r.stdout.startswith("ok")
 
 
-PROBES = ["scripts/pass1_probe.py", "scripts/stream_probe.py"]
+PROBES = ["scripts/pass1_probe.py", "scripts/stream_probe.py",
+          "scripts/phase_probe_torch.py", "scripts/resolve_probe.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py",
