@@ -19,7 +19,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    slices, which give the kernel's timed record and its bound;
 4. compress: BatchCompressor(level=6, use_device=True) over the corpus
    in 1 MiB items, every output checked with zlib; the table kernel and
-   the assembly kernels must have launched (their records' launches);
+   the assembly kernel must each have launched once a device pass
+   (their records' launches);
 5. decompress: BatchDecompressor(use_device=True, resolve="device") on
    the compressed items and on 256 zlib-6 streams of 64 KiB slices,
    byte-exact with no host fallback, the resolve kernel launched in
@@ -60,7 +61,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    use_device=True) over the corpus in 1 MiB items (64 KiB blocks),
    every output checked with zlib, ratio and wall per level (two runs);
    the first two items again with device="cpu", equal bytes; at L1 and
-   L4 the assembly kernels launched, at L4 the table kernel;
+   L4 the assembly kernel launched once a device pass, at L4 the table
+   kernel too;
 14. their two-pass decode: BatchDecompressor(use_device=True,
    resolve="device") on the L1 and L4 items and on the level-0 streams
    of the first 256 64-KiB slices, byte-exact; every host fallback is
@@ -103,18 +105,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    (in this process) and at N_RANKS gloo ranks (in phase 20's ranks),
    host and device resolve: every stream within the 64 KiB input cap
    byte-exact, the others None; pass 1 launched;
-22. the table kernel (dyn_tables) against its plain version (the Python
-   builder) on the histograms of the corpus's 259 L6 and 259 L4 blocks,
-   seeded tie-heavy histograms and edge cases: all four outputs equal;
-   then timed on the L6 blocks' histograms, with its byte bound;
-23. the assembly kernels (place_rows, join_rows) against their plain
-   versions on the card, on the device rows of an L1, an L4 and an L6
-   pass over the corpus items and a 64 KiB random item (its block
-   stored): streams, byte counts and joined bytes equal; then timed on
-   the L6 pass of the corpus items (the main path's shape), whose joined
-   streams must be phase 4's outputs: the record's ms is the two
-   launches with the size plan (and its host sync) made once outside,
-   and the whole call is logged beside it; the bound counts the row
+22. the table kernel (dyn_tables, two warps a histogram) against its
+   plain version (the Python builder) on the histograms of the corpus's
+   259 L6 and 259 L4 blocks, seeded tie-heavy histograms and edge cases:
+   all four outputs equal; then timed on the L6 blocks' histograms, with
+   its byte bound;
+23. the assembly kernel against its plain versions on the card, in its
+   three modes (assemble, place_rows, join_rows), on the device rows of
+   an L1, an L4 and an L6 pass over the corpus items and a 64 KiB random
+   item (its block stored): streams, byte counts and joined bytes equal;
+   then timed on the L6 pass of the corpus items (the main path's
+   shape), whose joined streams must be phase 4's outputs: the record's
+   ms is assemble's one launch (no host sync), and the whole `assemble`
+   call with its sync is logged beside it; the bound counts the row
    bytes that hold bits, not the rows' padded width;
 24. the resolve kernel (pass 2) against its plain version on the card:
    pass 1's tokens of the 256 slices, the 17 L6 items and 1 MiB of one
@@ -147,6 +150,7 @@ import os
 import random
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -179,6 +183,7 @@ BUDGET_OVER = 1.2           # phases 18, 20: one-pass need / card memory
 N_RANKS = 2                 # phase 20: gloo ranks on the one card
 N_TIE_HISTS = 512           # phase 22: seeded tie-heavy histograms
 RANK_TIMEOUT = 300          # seconds for phase 20's ranks
+RENDEZVOUS = 120            # seconds a phase 20 rank waits for the other
 
 
 def log(msg: str) -> None:
@@ -300,6 +305,20 @@ def time_cuda(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def counting_phases():
+    """Counts the encode flows' phase ends while open (one "assemble"
+    and, at L4-9, one "tables" a device compress pass)."""
+    import collections
+    from libdeflate_rsx_tpu_torch.models import greedy_static as gs
+    counts = collections.Counter()
+    old, gs.PHASE_END = gs.PHASE_END, lambda name: counts.update([name])
+    try:
+        yield counts
+    finally:
+        gs.PHASE_END = old
 
 
 def kernel_vs_plain(cases, out_cap: int, label: str):
@@ -815,15 +834,18 @@ def phase_compress_tiers(data: bytes):
         bc = BatchCompressor(level=level, use_device=True, device="cuda")
         dtab.LAUNCHES = asm.LAUNCHES = 0      # this tier starts here
         walls = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = bc.compress_batch(items)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+        with counting_phases() as phases:
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = bc.compress_batch(items)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
         launches = (dtab.LAUNCHES, asm.LAUNCHES)
-        assert (launches[0] > 0) == (level >= 4), (level, launches)
-        assert (launches[1] > 0) == (level >= 1), (level, launches)
+        passes = phases["assemble"]
+        assert (passes > 0) == (level >= 1), (level, passes)
+        assert launches == (passes if level >= 4 else 0, passes), \
+            (level, launches, passes)
         for i, (it_, c) in enumerate(zip(items, out)):
             assert zlib.decompress(c, -15) == it_, f"L{level} item {i}"
         t0 = time.perf_counter()
@@ -836,7 +858,8 @@ def phase_compress_tiers(data: bytes):
             f"{len(data) / sum(map(len, out)):.4f}; wall {walls[0]:.3f} s, "
             f"again {walls[1]:.3f} s; the first {N_CPU_ITEMS} items on the "
             f"CPU equal ({cpu_s:.2f} s); dyn_tables launches {launches[0]}, "
-            f"assembly launches {launches[1]} (two runs)")
+            f"assembly launches {launches[1]}, device passes {passes} (two "
+            f"runs)")
         comp[level] = out
     return items, comp
 
@@ -1193,8 +1216,8 @@ def phase_sharded_nccl(data: bytes, items, card: str) -> dict:
     from libdeflate_rsx_tpu_torch.models import greedy_static as gs
     from libdeflate_rsx_tpu_torch.parallel import multihost
 
-    multihost.initialize(f"tcp://127.0.0.1:{multihost.free_port()}", 1, 0,
-                         backend="nccl")
+    multihost.initialize(multihost.file_rendezvous(tempfile.mkdtemp()), 1,
+                         0, backend="nccl")
     outs, times = sharded_compress(data, items, "cuda")
     assert outs["static deflate"] == gs.deflate_device_static(
         data, device="cuda"), "sharded static != deflate_device_static"
@@ -1265,7 +1288,7 @@ def shared_card_decode(streams, chunks, reps: int) -> dict:
             "collective": dec.collective_seconds}
 
 
-def gloo_rank(rank: int, n: int, port: int, out: str, reps: int) -> None:
+def gloo_rank(rank: int, n: int, init: str, out: str, reps: int) -> None:
     """One of phase 20's ranks: gloo, its encoders on the one card. The
     sharded compress of phase 19, compress_global in gzip, the sharded
     decode of phase 21 and the decode over the shared card's memory;
@@ -1273,8 +1296,8 @@ def gloo_rank(rank: int, n: int, port: int, out: str, reps: int) -> None:
     import torch.distributed as dist
     from libdeflate_rsx_tpu_torch.parallel import multihost
 
-    multihost.initialize(f"tcp://127.0.0.1:{port}", n, rank, backend="gloo",
-                         timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+    multihost.initialize(init, n, rank, backend="gloo",
+                         timeout=datetime.timedelta(seconds=RENDEZVOUS))
     data = corpus()
     items = [data[i:i + ITEM] for i in range(0, len(data), ITEM)]
     outs, times = sharded_compress(data, items, "cuda")
@@ -1338,24 +1361,37 @@ def phase_sharded_gloo(expect: dict, data: bytes, slices, card: str) -> None:
     for o in outs:
         if os.path.exists(o):
             os.remove(o)
-    from libdeflate_rsx_tpu_torch.parallel.multihost import free_port
-    port = free_port()
+    from libdeflate_rsx_tpu_torch.parallel.multihost import file_rendezvous
+    init = file_rendezvous(tempfile.mkdtemp())
+    logs = [open(os.path.join(outdir, f"rank{r}.log"), "w+")
+            for r in range(N_RANKS)]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r),
-         str(N_RANKS), str(port), outs[r], str(reps)], cwd=ROOT,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+         str(N_RANKS), init, outs[r], str(reps)], cwd=ROOT,
+        stdout=logs[r], stderr=subprocess.STDOUT, text=True)
         for r in range(N_RANKS)]
     try:
-        for r, p in enumerate(procs):
-            text, _ = p.communicate(
-                timeout=max(1.0, RANK_TIMEOUT - (time.perf_counter() - t0)))
-            assert p.returncode == 0, f"gloo rank {r}:\n{text[-4000:]}"
+        while any(p.poll() is None for p in procs) \
+                and time.perf_counter() - t0 < RANK_TIMEOUT \
+                and all(p.poll() in (None, 0) for p in procs):
+            time.sleep(0.2)
+        codes = [p.poll() for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+            p.wait()
+    if codes != [0] * N_RANKS:
+        tails = []
+        for r, f in enumerate(logs):
+            f.seek(0)
+            tails.append(f"gloo rank {r} (exit {codes[r]}):\n"
+                         f"{f.read()[-4000:]}")
+        raise AssertionError("phase 20: every rank killed\n"
+                             + "\n".join(tails))
+    for f in logs:
+        f.close()
     dt = time.perf_counter() - t0
     for r, o in enumerate(outs):
         res = json.load(open(o))
@@ -1491,26 +1527,32 @@ def phase_tables_kernel(items, card: str, l6: dict):
 
 
 def assembly_vs_plain(inp, label: str):
-    """The assembly kernels and their plain versions on one pass's rows
+    """The assembly kernel in its three modes (assemble; place_rows, then
+    join_rows on its output) and its plain versions on one pass's rows
     (`inp`, assemble's inputs): streams, byte counts and joined bytes
     equal. Returns (max abs err, joined bytes, sizes, nbytes)."""
     import torch
     from libdeflate_rsx_tpu_torch.ops import assemble as asm
 
     place, join, cap = inp[:8], inp[8:10] + (inp.finals,), inp.out_cap
+    joined_a, sizes_a = asm.assemble(*inp)
     out_k, nb_k = asm.place_rows(*place, cap)
     out_p, nb_p = asm.place_rows_plain(*place, cap)
     joined_k, sizes_k = asm.join_rows(out_k, nb_k, *join)
     joined_p, sizes_p = asm.join_rows_plain(out_p, nb_p, *join)
     torch.cuda.synchronize()
-    err = max(int((out_k[:, :cap].int() - out_p.int()).abs().max()),
-              int((nb_k - nb_p).abs().max()),
-              int((joined_k.int() - joined_p.int()).abs().max())
-              if joined_k.numel() == joined_p.numel() else 1 << 30)
+
+    def diff(a, b):
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    err = max(diff(out_k[:, :cap], out_p), diff(nb_k, nb_p),
+              *(diff(j, joined_p) if j.numel() == joined_p.numel()
+                else 1 << 30 for j in (joined_k, joined_a)))
     assert torch.equal(out_k[:, :cap], out_p) and torch.equal(nb_k, nb_p) \
-        and (sizes_k == sizes_p).all() and torch.equal(joined_k, joined_p), \
-        f"assembly {label}: kernels != plain (max abs err {err})"
-    return err, joined_k, sizes_k, nb_k
+        and (sizes_k == sizes_p).all() and torch.equal(joined_k, joined_p) \
+        and (sizes_a == sizes_p).all() and torch.equal(joined_a, joined_p), \
+        f"assembly {label}: kernel != plain (max abs err {err})"
+    return err, joined_a, sizes_a, nb_k
 
 
 def assembly_bytes(inp, sizes, stored) -> int:
@@ -1534,8 +1576,8 @@ def assembly_bytes(inp, sizes, stored) -> int:
 
 
 def phase_assembly_kernel(items, comp, card: str, l6: dict):
-    """Phase 23: the assembly kernels against their plain versions on
-    the L1, L4 and L6 rows of the corpus items with a 64 KiB random item
+    """Phase 23: the assembly kernel against its plain versions on the
+    L1, L4 and L6 rows of the corpus items with a 64 KiB random item
     (stored), then the record on the L6 pass of the corpus items, whose
     joined streams must be the main path's bytes. Returns the record."""
     import torch
@@ -1561,9 +1603,7 @@ def phase_assembly_kernel(items, comp, card: str, l6: dict):
     got = [b"".join(parts[a:a + n]) for a, n in l6["metas"]]
     assert got == comp, "the L6 pass's joined streams != phase 4's outputs"
     place, join, cap = inp[:8], inp[8:10] + (inp.finals,), inp.out_cap
-    plan = asm.join_plan(nbytes, inp.raw_len)
-    ms = time_cuda(lambda: asm.join_planned(
-        asm.place_rows(*place, cap)[0], *join, plan), KERNEL_REPS)
+    ms = time_cuda(lambda: asm.assemble_async(*inp), KERNEL_REPS)
     ms_place = time_cuda(lambda: asm.place_rows(*place, cap), KERNEL_REPS)
     ms_call = time_cuda(lambda: asm.assemble(*inp), KERNEL_REPS)
     torch.cuda.synchronize()
@@ -1575,11 +1615,13 @@ def phase_assembly_kernel(items, comp, card: str, l6: dict):
     nbytes_moved = assembly_bytes(inp, sizes, stored)
     log(f"assembly on the L6 pass of the corpus items "
         f"({inp.rows.shape[0]} blocks, {tuple(inp.rows.shape)} rows, "
-        f"{int(stored.sum())} stored): equal to phase 4's outputs; place "
-        f"and join kernels {ms:.3f} ms per pass (the size plan made once, "
-        f"outside), place alone {ms_place:.3f} ms (both with place's zero "
-        f"fill), the whole `assemble` call with its host sync "
-        f"{ms_call:.3f} ms (CUDA events, {KERNEL_REPS} calls each); plain "
+        f"{int(stored.sum())} stored, shared-memory build buffer "
+        f"{4 * -(-min(cap, asm.stored_cost(inp.raw.shape[1])) // 4)} B a "
+        f"block of {asm.smem_limit(inp.rows.device)}): equal to phase 4's "
+        f"outputs; assemble's one launch {ms:.3f} ms per pass (no host "
+        f"sync), the whole `assemble` call with its host sync "
+        f"{ms_call:.3f} ms, place_rows alone (its (B, pitch) buffer) "
+        f"{ms_place:.3f} ms (CUDA events, {KERNEL_REPS} calls each); plain "
         f"versions {plain_ms:.1f} ms (host clock, one run, on the card) "
         f"[{card}]")
     return record("assemble_rows", "native/assemble.c assemble_rows",
@@ -1712,12 +1754,15 @@ def main() -> int:
 
     it.LAUNCHES = rs.LAUNCHES = 0         # the main path starts here
     dtab.LAUNCHES = asm.LAUNCHES = 0
-    items, comp = phase_compress(data)
+    with counting_phases() as phases:
+        items, comp = phase_compress(data)
+    passes = phases["assemble"]
     launches_tail = (dtab.LAUNCHES, asm.LAUNCHES)
-    assert min(launches_tail) > 0, \
-        f"the L6 compress launched dyn_tables/assembly {launches_tail}"
+    assert passes > 0 and launches_tail == (passes, passes), \
+        f"the L6 compress launched dyn_tables/assembly {launches_tail} in " \
+        f"{passes} passes"
     log(f"dyn_tables launches on the L6 compress: {launches_tail[0]}; "
-        f"assembly launches (place, join): {launches_tail[1]}")
+        f"assembly launches: {launches_tail[1]} ({passes} device passes)")
     comp_l6 = comp
     counts = route_counts()
     phase_decompress("L6 items", comp, items, [ITEM] * len(comp))
@@ -1818,7 +1863,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-rank"]:
-        gloo_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+        gloo_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                   sys.argv[5], int(sys.argv[6]))
         sys.exit(0)
     sys.exit(main())

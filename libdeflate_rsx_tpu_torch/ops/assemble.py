@@ -1,32 +1,41 @@
 """Block assembly of the device encoder on the device: row buffers ->
 each block's DEFLATE stream -> the streams joined, stored fallback
-included.
+included, in one kernel launch.
 
 Counterpart of the JAX package's host tail of its L1-9 device encoders:
 `native/assemble.c` `assemble_rows` (numpy's `bitwise_or.at` where that
 library does not build) with the per-block tail of its numpy assemblers
 (`ops/encode_v2.assemble_blocks`, `models/greedy_dynamic.assemble_dynamic`:
 header, EOB, SYNC trailer) and the stored fallback of
-`models/greedy_static` / `greedy_dynamic`. Two kernels in
-`csrc/assemble_rows.cu` do it on the card; `place_rows_plain` and
-`join_rows_plain` beside them are their plain PyTorch versions. The
-wrappers take the kernels for CUDA tensors and the plain versions for
-CPU tensors.
+`models/greedy_static` / `greedy_dynamic`. One kernel in
+`csrc/assemble_rows.cu` does it on the card; `place_rows_plain` and
+`join_rows_plain` are its plain PyTorch versions. The wrappers take the
+kernel for CUDA tensors and the plain versions for CPU tensors.
 
-`place_rows` ORs each block's rows into its stream: the header bytes
-first (`hdr_bits` of them; the static tier's is the 3-bit BFINAL |
-BTYPE=01), the rows at `byte_off`, each over the bytes its bits span
-(`row_bit0` to the next row's, the last to `end_bits`; at most the row
-width), the EOB code (`eob`: code | len << 16) at `end_bits`, and for a
-non-final block the SYNC trailer (an empty stored block, `00 00 FF FF`
-byte-aligned). A block whose stream would pass `out_cap` gets byte count
--1; `join_rows` raises on it.
+A block's stream: the header bytes first (`hdr_bits` of them; the static
+tier's is the 3-bit BFINAL | BTYPE=01), the rows ORed in at `byte_off`,
+each over the bytes its bits span (`row_bit0` to the next row's, the
+last to `end_bits`; at most the row width), the EOB code (`eob`: code |
+len << 16) at `end_bits`, and for a non-final block the SYNC trailer (an
+empty stored block, `00 00 FF FF` byte-aligned). A block whose stream
+would pass `out_cap` gets byte count -1, and the join raises on it.
 
-`join_rows` turns a block whose stream is longer than its stored form
+The join turns a block whose stream is longer than its stored form
 (`v + 5 * ceil(v / 65535)` bytes for `v` raw bytes, at least one chunk)
-into stored blocks of its raw bytes, places the blocks end to end at the
-exclusive scan of their sizes, and returns the joined buffer on the
-device with the sizes on the host.
+into stored blocks of its raw bytes, and places the blocks end to end at
+the exclusive scan of their sizes.
+
+- `assemble` (the encode flows' call): on the card one launch builds
+  each block's stream in shared memory, takes its offset from a
+  single-pass scan and writes it, or its stored form, into a joined
+  buffer allocated beforehand at a capacity the host knows without a
+  sync (`joined_capacity`: no block's joined size passes its stored
+  cost). Then one copy brings the byte counts and sizes to the host,
+  which raises on -1 and cuts the buffer to their sum.
+- `place_rows`: each block's stream alone, in row b of a (B, >= out_cap)
+  buffer (the same kernel, without the join).
+- `join_rows`: streams placed so, joined (the same kernel, reading the
+  placed rows).
 """
 
 from __future__ import annotations
@@ -41,8 +50,8 @@ from . import _build
 
 MAX_STORED = 65535
 
-#: kernel launches made by `place_rows` and `join_rows` (two per
-#: assembled pass; the plain versions do not count)
+#: kernel launches made by `assemble`, `place_rows` and `join_rows` (one
+#: per assembled pass; the plain versions do not count)
 LAUNCHES = 0
 
 
@@ -64,30 +73,93 @@ class Inputs(NamedTuple):
     out_cap: int
 
 
-class JoinPlan(NamedTuple):
-    """Each block's joined size, stored flag and offset (on the
-    device), and the sizes on the host."""
-    sizes: torch.Tensor
-    stored: torch.Tensor
-    offsets: torch.Tensor
-    host: np.ndarray
+_POINTERS = ("rows", "byte_off", "row_bit0", "end_bits", "hdr", "hdr_bits",
+             "eob", "finals", "placed", "placed_nbytes", "raw", "raw_len",
+             "scratch", "out", "joined", "scan", "info")
+_WIDE = ("out_cap", "placed_pitch", "raw_stride", "buf_words", "out_pitch",
+         "eob_stride")
+_INTS = ("nblocks", "nrows", "width", "hdr_cap")
+
+
+class _Args(ctypes.Structure):
+    """The kernel's arguments (csrc/assemble_rows.cu `Args`)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in _POINTERS]
+                + [(n, ctypes.c_int64) for n in _WIDE]
+                + [(n, ctypes.c_int) for n in _INTS])
 
 
 def _lib():
     lib = _build.load("assemble_rows")
-    if lib.ldrsx_place_rows.argtypes is None:
-        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.ldrsx_place_rows.argtypes = [p] * 8 + [i] * 4 + [q, q] \
-            + [p] * 4
-        lib.ldrsx_place_rows.restype = ctypes.c_int
-        lib.ldrsx_join_rows.argtypes = [p, q] + [p] * 4 + [q] + [p, p, i, q,
-                                                             p, p]
-        lib.ldrsx_join_rows.restype = ctypes.c_int
+    if lib.ldrsx_assemble.argtypes is None:
+        lib.ldrsx_assemble.argtypes = [ctypes.POINTER(_Args),
+                                       ctypes.c_void_p]
+        lib.ldrsx_assemble.restype = ctypes.c_int
+        lib.ldrsx_assemble_smem_limit.argtypes = [ctypes.c_int]
+        lib.ldrsx_assemble_smem_limit.restype = ctypes.c_int
     return lib
+
+
+_SMEM: dict[int, int] = {}
+#: each (device, stream)'s scan state: a ticket, a count and one status
+#: word per block, zeros between launches (the kernel's last thread
+#: block clears them)
+_SCAN: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def smem_limit(dev: torch.device) -> int:
+    """Bytes of shared memory the kernel's thread block can take on the
+    card: a stream up to this size is built there, a longer one in a
+    global scratch row."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMEM:
+        limit = _lib().ldrsx_assemble_smem_limit(idx)
+        if limit < 0:
+            raise RuntimeError("assemble: the card's shared memory limit "
+                               "could not be read")
+        _SMEM[idx] = limit
+    return _SMEM[idx]
+
+
+def _scan_state(dev: torch.device, stream: int, nblocks: int):
+    key = (dev.index, stream)
+    state = _SCAN.get(key)
+    if state is None or state.numel() < 2 + nblocks:
+        state = torch.zeros(2 + max(nblocks, 1024), dtype=torch.int64,
+                            device=dev)
+        _SCAN[key] = state
+    return state
+
+
+def _launch(dev: torch.device, nblocks: int, **fields) -> None:
+    """One launch of the kernel on the current stream."""
+    global LAUNCHES
+    args = _Args(nblocks=nblocks)
+    for name, value in fields.items():
+        setattr(args, name, value.data_ptr()
+                if isinstance(value, torch.Tensor) else value)
+    with torch.cuda.device(dev):
+        rc = _lib().ldrsx_assemble(ctypes.byref(args), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"assemble kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
 
 
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def stored_cost(v: int) -> int:
+    """Bytes of the stored form of v raw bytes: v plus 5 per chunk of at
+    most 65,535 bytes, at least one chunk."""
+    return v + 5 * max(1, -(-v // MAX_STORED))
+
+
+def joined_capacity(nblocks: int, raw_width: int) -> int:
+    """Bytes that hold every block's joined stream, known on the host
+    without a sync: a block keeps its stream only where it is no longer
+    than its stored cost, and a raw length is at most the raw rows'
+    width."""
+    return nblocks * stored_cost(raw_width)
 
 
 def static_layout(rowbits: torch.Tensor, total_bits: torch.Tensor,
@@ -113,44 +185,61 @@ def row_extents(row_bit0: torch.Tensor, end_bits: torch.Tensor,
     return (((row_bit0 & 7) + nxt - row_bit0 + 7) >> 3).clamp(max=width)
 
 
-def place_rows(rows, byte_off, row_bit0, end_bits, hdr, hdr_bits, eob,
-               finals, out_cap: int):
-    """(out (B, >= out_cap) uint8 with each block's stream from byte 0,
-    nbytes (B,) int64, -1 for a block past out_cap), on the inputs'
-    device (module docstring)."""
-    global LAUNCHES
-    b, r, w = rows.shape
+def _check_place(rows, byte_off, row_bit0, end_bits, hdr, hdr_bits, eob,
+                 finals) -> None:
+    b, r, _ = rows.shape
     if rows.dtype != torch.uint8 or hdr.dtype != torch.uint8 \
             or byte_off.shape != (b, r) or row_bit0.shape != (b, r) \
             or hdr.shape[0] != b or any(x.shape != (b,) for x in (
                 end_bits, hdr_bits, eob, finals)):
         raise ValueError("place_rows: rows and hdr must be uint8, with "
                          "(B, R) offsets and (B,) block fields")
+
+
+def _row_fields(rows, byte_off, row_bit0, end_bits, hdr, hdr_bits,
+                eob) -> dict:
+    """The kernel's row fields, in the types it reads (eob as it is laid
+    out: the dynamic tiers' is a column of their litlen tables)."""
+    i64, i32 = torch.int64, torch.int32
+    eob = eob.to(i32)
+    return dict(rows=rows.contiguous(), byte_off=byte_off.to(i64).contiguous(),
+                row_bit0=row_bit0.to(i64).contiguous(),
+                end_bits=end_bits.to(i64).contiguous(), hdr=hdr.contiguous(),
+                hdr_bits=hdr_bits.to(i32).contiguous(), eob=eob,
+                eob_stride=eob.stride(0), nrows=rows.shape[1],
+                width=rows.shape[2], hdr_cap=hdr.shape[1])
+
+
+def _bytes(flags):
+    """A (B,) flag tensor as the kernel's uint8, without a copy for bool."""
+    return (flags.view(torch.uint8) if flags.dtype == torch.bool
+            else flags.to(torch.uint8)).contiguous()
+
+
+def place_rows(rows, byte_off, row_bit0, end_bits, hdr, hdr_bits, eob,
+               finals, out_cap: int):
+    """(out (B, >= out_cap) uint8 with each block's stream from byte 0
+    and zeros after it, nbytes (B,) int64, -1 for a block past out_cap),
+    on the inputs' device (module docstring)."""
+    _check_place(rows, byte_off, row_bit0, end_bits, hdr, hdr_bits, eob,
+                 finals)
     if rows.device.type == "cpu":
         return place_rows_plain(rows, byte_off, row_bit0, end_bits, hdr,
                                 hdr_bits, eob, finals, out_cap)
     dev = rows.device
+    b = rows.shape[0]
     pitch = -(-out_cap // 4) * 4
-    out = torch.zeros((b, pitch), dtype=torch.uint8, device=dev)
+    out = torch.empty((b, pitch), dtype=torch.uint8, device=dev)
     nbytes = torch.empty(b, dtype=torch.int64, device=dev)
-    status = torch.zeros(b, dtype=torch.int32, device=dev)
     if b == 0:
         return out, nbytes
-    i64 = torch.int64
-    args = [rows.contiguous(), byte_off.to(i64).contiguous(),
-            row_bit0.to(i64).contiguous(), end_bits.to(i64).contiguous(),
-            hdr.contiguous(), hdr_bits.to(torch.int32).contiguous(),
-            eob.to(torch.int32).contiguous(),
-            finals.to(torch.uint8).contiguous()]
-    with torch.cuda.device(dev):
-        rc = _lib().ldrsx_place_rows(
-            *(a.data_ptr() for a in args), b, r, w, hdr.shape[1], out_cap,
-            pitch, out.data_ptr(), nbytes.data_ptr(), status.data_ptr(),
-            _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"place_rows kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    return out, torch.where(status != 0, -1, nbytes)
+    # a row past the shared-memory limit is built in place, in out
+    _launch(dev, b, **_row_fields(rows, byte_off, row_bit0, end_bits, hdr,
+                                  hdr_bits, eob),
+            finals=_bytes(finals), out=out,
+            out_pitch=pitch, out_cap=out_cap, buf_words=pitch // 4,
+            scratch=out if pitch > smem_limit(dev) else None, info=nbytes)
+    return out, nbytes
 
 
 def place_rows_plain(rows, byte_off, row_bit0, end_bits, hdr, hdr_bits,
@@ -207,19 +296,6 @@ def raise_past_cap(nbytes: np.ndarray) -> None:
             "capacity")
 
 
-def join_plan(nbytes, raw_len) -> JoinPlan:
-    """A block longer than its stored form takes the stored form; the
-    blocks' sizes, flags and offsets, with one copy of the byte counts
-    and sizes to the host. Raises for a block that passed out_cap."""
-    v = raw_len.to(torch.int64)
-    cost = v + 5 * ((v + MAX_STORED - 1) // MAX_STORED).clamp(min=1)
-    stored = nbytes > cost
-    sizes = torch.where(stored, cost, nbytes)
-    host = torch.stack([nbytes, sizes]).cpu().numpy()
-    raise_past_cap(host[0])
-    return JoinPlan(sizes, stored, torch.cumsum(sizes, 0) - sizes, host[1])
-
-
 def _check_join(out, nbytes, raw, raw_len, finals) -> None:
     b = out.shape[0]
     if out.dtype != torch.uint8 or raw.dtype != torch.uint8 \
@@ -229,50 +305,65 @@ def _check_join(out, nbytes, raw, raw_len, finals) -> None:
                          "(B,) block fields")
 
 
+def _join_async(dev, b: int, raw, raw_len, finals, **fields):
+    """The kernel's join launched on the card, with no host sync:
+    (joined buffer of joined_capacity bytes, info (2, B) int64: byte
+    counts, -1 past out_cap, and joined sizes), both on the device."""
+    if raw.shape[1] > 1 and raw.stride(1) != 1:
+        raise ValueError("join_rows: raw rows must be contiguous in bytes")
+    joined = torch.empty(joined_capacity(b, raw.shape[1]), dtype=torch.uint8,
+                         device=dev)
+    info = torch.empty((2, b), dtype=torch.int64, device=dev)
+    if b:
+        _launch(dev, b, **fields, raw=raw, raw_stride=raw.stride(0),
+                raw_len=raw_len.to(torch.int32).contiguous(),
+                finals=_bytes(finals), joined=joined,
+                scan=_scan_state(dev, _stream(dev), b), info=info)
+    return joined, info
+
+
+def _cut(joined, info):
+    """One copy of the byte counts and sizes to the host; raises for a
+    block past out_cap. Returns (the joined streams on the device, sizes
+    (B,) int64 on the host)."""
+    host = info.cpu().numpy()
+    raise_past_cap(host[0])
+    return joined[:int(host[1].sum())], host[1]
+
+
 def join_rows(out, nbytes, raw, raw_len, finals):
     """(joined (sum of sizes,) uint8 on the device, sizes (B,) int64 on
-    the host): the blocks' streams, or their stored forms read from raw
-    (B, >= max raw_len) uint8 rows (a row may be a strided view),
-    end to end. Raises if a block passed out_cap (nbytes -1)."""
+    the host): the blocks' streams, placed in out (B, >= nbytes) uint8
+    rows as `place_rows` gives them, or their stored forms read from raw
+    (B, >= max raw_len) uint8 rows (a row may be a strided view), end to
+    end. Raises if a block passed out_cap (nbytes -1)."""
     _check_join(out, nbytes, raw, raw_len, finals)
     if out.device.type == "cpu":
         return join_rows_plain(out, nbytes, raw, raw_len, finals)
-    plan = join_plan(nbytes, raw_len)
-    return join_planned(out, raw, raw_len, finals, plan), plan.host
-
-
-def join_planned(out, raw, raw_len, finals, plan: JoinPlan):
-    """The join kernel's launch on a plan from `join_plan`, with no
-    host sync: the joined streams on the device."""
-    global LAUNCHES
-    dev = out.device
-    total = int(plan.host.sum())
-    joined = torch.empty(total, dtype=torch.uint8, device=dev)
-    if total == 0:
-        return joined
-    if out.stride(1) != 1 or raw.stride(1) != 1:
-        raise ValueError("join_rows: rows must be contiguous in bytes")
-    args = (plan.sizes, plan.offsets, plan.stored.to(torch.uint8))
-    raw_len = raw_len.to(torch.int64).contiguous()
-    fin = finals.to(torch.uint8).contiguous()
-    with torch.cuda.device(dev):
-        rc = _lib().ldrsx_join_rows(
-            out.data_ptr(), out.stride(0), *(a.data_ptr() for a in args),
-            raw.data_ptr(), raw.stride(0), raw_len.data_ptr(), fin.data_ptr(),
-            out.shape[0], int(plan.host.max()), joined.data_ptr(),
-            _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"join_rows kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    return joined
+    if out.stride(1) != 1 or out.stride(0) % 4 or out.data_ptr() % 4:
+        raise ValueError("join_rows: out's rows must be contiguous in bytes "
+                         "and 4-byte aligned, as place_rows gives them")
+    return _cut(*_join_async(
+        out.device, out.shape[0], raw, raw_len, finals, placed=out,
+        placed_pitch=out.stride(0),
+        placed_nbytes=nbytes.to(torch.int64).contiguous(),
+        out_cap=out.shape[1]))
 
 
 def join_rows_plain(out, nbytes, raw, raw_len, finals):
-    """Plain version of the join kernel, with tensor gathers, on any
-    device."""
+    """Plain version of the kernel's join, with tensor gathers, on any
+    device: a block longer than its stored form takes the stored form;
+    one copy of the byte counts and sizes to the host raises for a block
+    that passed out_cap."""
     _check_join(out, nbytes, raw, raw_len, finals)
     dev = out.device
-    sizes, stored, offsets, host = join_plan(nbytes, raw_len)
+    v = raw_len.to(torch.int64)
+    cost = v + 5 * ((v + MAX_STORED - 1) // MAX_STORED).clamp(min=1)
+    stored = nbytes > cost
+    sizes = torch.where(stored, cost, nbytes)
+    host = torch.stack([nbytes, sizes]).cpu().numpy()
+    raise_past_cap(host[0])
+    offsets = torch.cumsum(sizes, 0) - sizes
     b = out.shape[0]
     bid = torch.repeat_interleave(torch.arange(b, device=dev), sizes)
     t = torch.arange(bid.shape[0], device=dev) - offsets[bid]
@@ -288,16 +379,40 @@ def join_rows_plain(out, nbytes, raw, raw_len, finals):
                             body.to(torch.int64))
     streamed = out[bid, t.clamp(max=out.shape[1] - 1)].to(torch.int64)
     joined = torch.where(stored[bid], as_stored, streamed).to(torch.uint8)
-    return joined, host
+    return joined, host[1]
 
 
 def assemble(rows, byte_off, row_bit0, end_bits, hdr, hdr_bits, eob, finals,
              raw, raw_len, out_cap: int):
-    """place_rows then join_rows: (joined streams on the device, each
-    block's size on the host)."""
-    out, nbytes = place_rows(rows, byte_off, row_bit0, end_bits, hdr,
-                             hdr_bits, eob, finals, out_cap)
-    return join_rows(out, nbytes, raw, raw_len, finals)
+    """(joined streams on the device, each block's size on the host):
+    place_rows then join_rows, in one kernel launch on the card (module
+    docstring)."""
+    _check_place(rows, byte_off, row_bit0, end_bits, hdr, hdr_bits, eob,
+                 finals)
+    if rows.device.type == "cpu":
+        out, nbytes = place_rows_plain(rows, byte_off, row_bit0, end_bits,
+                                       hdr, hdr_bits, eob, finals, out_cap)
+        return join_rows_plain(out, nbytes, raw, raw_len, finals)
+    return _cut(*assemble_async(rows, byte_off, row_bit0, end_bits, hdr,
+                                hdr_bits, eob, finals, raw, raw_len, out_cap))
+
+
+def assemble_async(rows, byte_off, row_bit0, end_bits, hdr, hdr_bits, eob,
+                   finals, raw, raw_len, out_cap: int):
+    """`assemble`'s launch on the card, with no host sync: (joined
+    buffer, info (2, B) int64 of byte counts, -1 past out_cap, and
+    joined sizes), both on the device. CUDA tensors only."""
+    dev = rows.device
+    b = rows.shape[0]
+    # a stream that is kept is no longer than its stored cost
+    words = -(-min(out_cap, stored_cost(raw.shape[1])) // 4)
+    scratch = None
+    if b and 4 * words > smem_limit(dev):
+        scratch = torch.empty(b * words, dtype=torch.int32, device=dev)
+    return _join_async(dev, b, raw, raw_len, finals,
+                       **_row_fields(rows, byte_off, row_bit0, end_bits, hdr,
+                                     hdr_bits, eob),
+                       out_cap=out_cap, buf_words=words, scratch=scratch)
 
 
 def split_parts(joined: torch.Tensor, sizes: np.ndarray) -> list[bytes]:

@@ -11,7 +11,8 @@ taking and giving tensors of the kernel's shapes. `build_tables` takes
 the kernel for CUDA tensors and the plain version for CPU tensors.
 
 Inputs: `ll_hist (B, 288)` and `of_hist (B, 30)` symbol counts (the
-uint16 histograms of `encode_dynamic._histograms`), `finals (B,)` bool.
+uint16 histograms of `encode_dynamic._histograms`; the kernel takes no
+other type), `finals (B,)` bool.
 Outputs, on the inputs' device: `ll_tabs (B, 288)` and `of_tabs (B, 30)`
 int32 entries `code | len << 16` (codes bit-reversed for LSB-first
 emission), `hdr (B, HDR_CAP)` uint8 header bytes (BFINAL | BTYPE=10, then
@@ -68,11 +69,13 @@ def build_tables(ll_hist: torch.Tensor, of_hist: torch.Tensor,
     dev = ll_hist.device
     if dev.type == "cpu":
         return build_tables_plain(ll_hist, of_hist, finals)
+    if ll_hist.dtype != torch.uint16 or of_hist.dtype != torch.uint16:
+        raise ValueError("build_tables: the kernel takes uint16 histograms")
     fn = _kernel_lib()
     b = ll_hist.shape[0]
-    llh = ll_hist.to(torch.int32).contiguous()
-    ofh = of_hist.to(torch.int32).contiguous()
-    fin = finals.to(torch.uint8).contiguous()
+    llh, ofh = ll_hist.contiguous(), of_hist.contiguous()
+    fin = (finals.view(torch.uint8) if finals.dtype == torch.bool
+           else finals.to(torch.uint8)).contiguous()
     # the kernel writes every element of its outputs
     ll_tabs = torch.empty((b, NUM_LITLEN), dtype=torch.int32, device=dev)
     of_tabs = torch.empty((b, NUM_OFFSET), dtype=torch.int32, device=dev)

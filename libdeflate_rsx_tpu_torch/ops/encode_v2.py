@@ -212,7 +212,9 @@ def pack_rows(val: torch.Tensor, nb: torch.Tensor, start_bits: torch.Tensor,
     ends = torch.cumsum(nb, dim=1)
     bitpos = start_bits.to(torch.int64)[:, None] + ends - nb
     bitpos_r = bitpos.view(b, r, ROW)
-    row_bit0 = bitpos_r[:, :, 0]
+    # one strided read of the rows' first lanes; the assembly reads the
+    # copy, and the (B, s) bit positions can go
+    row_bit0 = bitpos_r[:, :, 0].contiguous()
     word_off = row_bit0 >> 5
     local_word = (bitpos_r >> 5) - word_off[..., None]
     shift = bitpos_r & 31

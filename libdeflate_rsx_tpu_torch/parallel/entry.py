@@ -8,13 +8,16 @@ a batch of blocks, with example arguments on the card (or the CPU).
 `dryrun_multichip(n)` starts n gloo ranks on the CPU, each a child
 process with a timeout, that run the sharded gzip round trip of the
 static tier, the dynamic tier and the sharded two-pass decode on tiny
-shapes. Run one rank by hand with
-`python -m libdeflate_rsx_tpu_torch.parallel.entry RANK N PORT`.
+shapes. The ranks meet at a file rendezvous in a temporary directory.
+Run one rank by hand with
+`python -m libdeflate_rsx_tpu_torch.parallel.entry RANK N INIT_METHOD
+SECONDS` (SECONDS: how long it waits for the others).
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
 import functools
 import os
 import subprocess
@@ -53,37 +56,43 @@ def entry(device=None):
 
 def dryrun_multichip(n_devices: int, timeout: float = 300.0) -> None:
     """Run the sharded paths on n_devices gloo ranks on the CPU, each a
-    child process; raises when a rank fails or outlasts `timeout`
-    seconds (every child is killed then)."""
-    from .multihost import free_port
+    child process; the ranks wait half of `timeout` for each other. Raises
+    when a rank fails or the ranks outlast `timeout` seconds: every
+    child is killed then, and the error holds each rank's stderr tail."""
+    from .multihost import file_rendezvous
 
-    port = free_port()
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     deadline = time.monotonic() + timeout
-    errors = []
     with contextlib.ExitStack() as stack:
+        init = file_rendezvous(stack.enter_context(
+            tempfile.TemporaryDirectory()))
         logs = [stack.enter_context(tempfile.TemporaryFile("w+"))
                 for _ in range(n_devices)]
         procs = [subprocess.Popen(
             [sys.executable, "-m", "libdeflate_rsx_tpu_torch.parallel.entry",
-             str(rank), str(n_devices), str(port)],
+             str(rank), str(n_devices), init, str(timeout / 2)],
             cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=log)
             for rank, log in enumerate(logs)]
         try:
-            for rank, (p, log) in enumerate(zip(procs, logs)):
-                p.wait(timeout=max(0.0, deadline - time.monotonic()))
-                if p.returncode != 0:
-                    log.seek(0)
-                    errors.append(f"rank {rank} exited {p.returncode}:\n"
-                                  f"{log.read()[-3000:]}")
+            while any(p.poll() is None for p in procs) \
+                    and time.monotonic() < deadline \
+                    and all(p.poll() in (None, 0) for p in procs):
+                time.sleep(0.1)
         finally:
+            codes = [p.poll() for p in procs]
             for p in procs:
                 if p.poll() is None:
                     p.kill()
-                    p.wait()
-    if errors:
-        raise RuntimeError("dryrun_multichip failed:\n" + "\n".join(errors))
+                p.wait()
+        if codes != [0] * n_devices:
+            tails = []
+            for rank, log in enumerate(logs):
+                log.seek(0)
+                tails.append(f"rank {rank} (exit {codes[rank]}):\n"
+                             f"{log.read()[-3000:]}")
+            raise RuntimeError("dryrun_multichip failed (every rank "
+                               "killed):\n" + "\n".join(tails))
 
 
 def _check(ok: bool, what: str) -> None:
@@ -91,10 +100,11 @@ def _check(ok: bool, what: str) -> None:
         raise RuntimeError(f"dryrun_multichip: {what} failed")
 
 
-def _dryrun_rank(rank: int, n_devices: int, port: int) -> None:
+def _dryrun_rank(rank: int, n_devices: int, init: str,
+                 seconds: float) -> None:
     """One rank of the dry run: the gzip round trip of the static tier,
     the dynamic tier and the sharded decode, as the JAX package's
-    dry run does on its mesh."""
+    dry run does on its mesh. The rank waits `seconds` for the others."""
     import gzip
     import zlib
 
@@ -102,8 +112,8 @@ def _dryrun_rank(rank: int, n_devices: int, port: int) -> None:
 
     from . import ShardedCompressor, ShardedDecompressor, multihost
 
-    multihost.initialize(f"tcp://127.0.0.1:{port}", n_devices, rank,
-                         backend="gloo")
+    multihost.initialize(init, n_devices, rank, backend="gloo",
+                         timeout=datetime.timedelta(seconds=seconds))
     block_size = 1024
     rng = np.random.default_rng(1)
     base = rng.integers(0, 256, 37, dtype=np.uint8)
@@ -129,4 +139,5 @@ def _dryrun_rank(rank: int, n_devices: int, port: int) -> None:
 
 
 if __name__ == "__main__":
-    _dryrun_rank(*(int(a) for a in sys.argv[1:4]))
+    _dryrun_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                 float(sys.argv[4]))

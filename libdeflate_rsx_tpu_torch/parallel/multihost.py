@@ -6,7 +6,10 @@ speaks of ranks, one card each:
 
 - `initialize()`: `init_process_group`, NCCL when a card is present,
   else gloo, with the rendezvous from the arguments or the `torchrun`
-  environment and an explicit timeout;
+  environment and an explicit timeout; the group is left at exit;
+- `file_rendezvous()`: a `file://` rendezvous in a directory that the
+  ranks of one machine share, so no TCP port is chosen before it is
+  bound;
 - `process_local_batch()`: the round-robin split of a global batch that
   every rank computes alike, with no traffic;
 - `compress_local_shard()`: this rank's share on its own card, with no
@@ -23,6 +26,7 @@ that ranks sharing a card split its free memory between their passes.
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 import socket
@@ -48,7 +52,11 @@ def initialize(init_method: str | None = None,
     (default "env://": MASTER_ADDR and MASTER_PORT, WORLD_SIZE and RANK
     from `torchrun`); backend: "nccl" when a CUDA card is present, else
     "gloo". Under NCCL each rank takes card LOCAL_RANK (default: its
-    rank modulo the card count)."""
+    rank modulo the card count). `timeout` bounds the rendezvous and
+    every collective. The group is destroyed at interpreter exit: a
+    gloo rank that exits with its group alive can abort in the
+    teardown of the group's threads (SIGABRT, "terminate called without
+    an active exception") after its work is done."""
     if dist.is_initialized():
         return
     if backend is None:
@@ -61,7 +69,13 @@ def initialize(init_method: str | None = None,
         local = os.environ.get("LOCAL_RANK")
         torch.cuda.set_device(int(local) if local is not None else
                               dist.get_rank() % torch.cuda.device_count())
+    atexit.register(_leave)
     budget.SHARERS = _ranks_on_my_card()
+
+
+def _leave() -> None:
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _ranks_on_my_card() -> int:
@@ -77,11 +91,15 @@ def _ranks_on_my_card() -> int:
     return 1 if key is None else keys.count(key)
 
 
-def free_port() -> int:
-    """A free TCP port on this host, for a rendezvous at localhost."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def file_rendezvous(directory: str) -> str:
+    """init_method of a rendezvous through a new file in `directory`,
+    for ranks on one machine: unlike a TCP port picked before rank 0
+    binds it, the file cannot be taken by another process meanwhile.
+    Each process group needs its own file."""
+    path = os.path.join(os.path.abspath(directory), "rendezvous")
+    if os.path.exists(path):
+        raise FileExistsError(f"{path}: a rendezvous file is used once")
+    return "file://" + path
 
 
 def global_stream_mesh():

@@ -11,13 +11,24 @@ and test_torch_encode_l6.py hold to the JAX package's rows. Checked:
 - `assemble` (placement, stored fallback, join) gives the bytes of the JAX
   package's `assemble_with_fallback` / `apply_stored_fallback`, with the
   random block stored; a 64 KiB random block becomes two stored chunks;
-- a block past out_cap gets byte count -1 and `assemble` raises.
+- a block past out_cap gets byte count -1 and `assemble` raises;
+- a Python mirror of the kernel's join (csrc/assemble_rows.cu): each
+  block's size from its byte count and stored cost, within the capacity
+  the host allocates without a sync and, for a kept stream, within the
+  block's build buffer; the offsets from the decoupled look-back over
+  status words (windows of 32, the nearest inclusive sum), in any order
+  of the thread blocks, equal to the exclusive scan; the joined bytes
+  written as whole aligned words (a funnel shift of two source words)
+  and byte-wise edges, equal to the plain join's; on a batch with stored
+  blocks in the middle.
 
 Tolerance: exact equality (bytes).
 """
 
+import random
 import zlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -159,3 +170,113 @@ def test_static_v2_raises_past_out_cap(monkeypatch):
     monkeypatch.setattr(pgs, "_OUT_FACTOR", 0.1)
     with pytest.raises(ValueError, match="output capacity"):
         pev.deflate_device_static_v2(data, BLOCK, device="cpu")
+
+
+AGGREGATE, INCLUSIVE = 1, 2
+
+
+def look_back(status, b: int) -> int:
+    """The kernel's look-back for block b: status words (flag, value) of
+    its predecessors read 32 at a time, nearest first, up to and with
+    the nearest inclusive sum."""
+    excl, j = 0, b - 1
+    while j >= 0:
+        window = [status[j - lane] if j - lane >= 0 else (INCLUSIVE, 0)
+                  for lane in range(32)]
+        assert all(flag for flag, _ in window)     # published at start
+        incl = [lane for lane, (flag, _) in enumerate(window)
+                if flag == INCLUSIVE]
+        if incl:
+            return excl + sum(v for _, v in window[:incl[0] + 1])
+        excl += sum(v for _, v in window)
+        j -= 32
+    return excl
+
+
+def scan_offsets(sizes, seed: int) -> list[int]:
+    """Every block publishes its size as an aggregate when it starts
+    (block 0 as an inclusive sum); then the blocks finish their
+    look-backs in a random order, each publishing its inclusive sum."""
+    status = [(AGGREGATE, s) for s in sizes]
+    offsets = [0] * len(sizes)
+    if sizes:
+        status[0] = (INCLUSIVE, sizes[0])
+    order = list(range(1, len(sizes)))
+    random.Random(seed).shuffle(order)
+    for b in order:
+        offsets[b] = look_back(status, b)
+        status[b] = (INCLUSIVE, offsets[b] + sizes[b])
+    return offsets
+
+
+def write_range(joined: bytearray, off: int, src: bytes) -> None:
+    """The kernel's write of src at joined[off:]: a word wholly inside
+    the range from two source words, an edge word byte by byte."""
+    end = off + len(src)
+    padded = src + bytes(4)
+    for w in range(off >> 2, ((end - 1) >> 2) + 1):
+        lo, hi = 4 * w, 4 * w + 4
+        if lo >= off and hi <= end:
+            t = lo - off
+            i, sh = t >> 2, t & 3
+            assert sh == 0 or 4 * i + 4 < len(src)   # both words are the
+            pair = int.from_bytes(padded[4 * i:4 * i + 8], "little")
+            joined[lo:hi] = ((pair >> (8 * sh)) & 0xFFFFFFFF).to_bytes(
+                4, "little")                          # stream's own
+        else:
+            for x in range(max(lo, off), min(hi, end)):
+                joined[x] = src[x - off]
+
+
+def stored_form(raw: bytes, final: bool) -> bytes:
+    """The kernel's stored_byte over the whole stored form."""
+    out, chunks = b"", max(1, -(-len(raw) // 65535))
+    for c in range(chunks):
+        body = raw[c * 65535:(c + 1) * 65535]
+        n = len(body)
+        out += bytes([int(final and c == chunks - 1), n & 0xFF, n >> 8,
+                      ~n & 0xFF, (~n >> 8) & 0xFF]) + body
+    return out
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_join_mirror_capacity_and_offsets(tier):
+    data = (make_corpus("text", BLOCK, seed=5)
+            + make_corpus("random", BLOCK, seed=6)
+            + make_corpus("text", BLOCK, seed=7)
+            + make_corpus("random", BLOCK, seed=8)
+            + make_corpus("pattern", BLOCK + 300, seed=9))
+    args = tier_inputs(tier, data)[0]
+    out, nbytes = asm.place_rows_plain(*args[:8], args.out_cap)
+    want, want_sizes = asm.join_rows_plain(out, nbytes, *args[8:10],
+                                           args.finals)
+    raw, raw_len = args.raw, args.raw_len.tolist()
+    nb = nbytes.tolist()
+    cost = [asm.stored_cost(v) for v in raw_len]
+    stored = [n > c for n, c in zip(nb, cost)]
+    sizes = [c if st else n for n, c, st in zip(nb, cost, stored)]
+    assert sizes == want_sizes.tolist()
+    assert [i for i, st in enumerate(stored) if st] == [1, 3]
+    words = -(-min(args.out_cap, asm.stored_cost(raw.shape[1])) // 4)
+    assert all(n <= 4 * words for n, st in zip(nb, stored) if not st)
+    assert sum(sizes) <= asm.joined_capacity(len(sizes), raw.shape[1])
+    scan = [sum(sizes[:b]) for b in range(len(sizes))]
+    for seed in range(4):
+        assert scan_offsets(sizes, seed) == scan
+    joined = bytearray(asm.joined_capacity(len(sizes), raw.shape[1]))
+    for b, off in enumerate(scan):
+        src = (stored_form(raw[b, :raw_len[b]].numpy().tobytes(),
+                           bool(args.finals[b])) if stored[b]
+               else out[b, :nb[b]].numpy().tobytes())
+        write_range(joined, off, src)
+    assert bytes(joined[:sum(sizes)]) == want.numpy().tobytes()
+
+
+def test_look_back_over_many_windows():
+    """Sizes of 300 blocks (past 32-block windows, some 0): the offsets
+    are the exclusive scan in any order of the thread blocks."""
+    sizes = np.random.default_rng(3).integers(0, 70000, 300).tolist()
+    sizes[40:80] = [0] * 40
+    scan = np.concatenate([[0], np.cumsum(sizes)[:-1]]).tolist()
+    for seed in range(8):
+        assert scan_offsets(sizes, seed) == scan

@@ -331,26 +331,45 @@ def test_dyn_tables_kernel_equals_plain_on_card(card):
         assert torch.equal(g, w)
 
 
-def _tier_rows(tier: str, data: bytes, card):
+def _tier_rows(tier: str, data: bytes, card, block: int = 16384):
     """assemble's inputs for one tier's pass on the card, from the
     flow's own helper."""
     from libdeflate_rsx_tpu_torch.models import greedy_dynamic as gd
     from libdeflate_rsx_tpu_torch.models import greedy_static as gs
 
-    block = 16384
     if tier == "static":
         arr, valid, finals, _ = gs.split_blocks(data, block)
         return gs.static_pass(arr, valid, finals, block, card)
+    if tier == "l4":
+        arr, valid, finals, _ = gs.split_blocks(data, block)
+        return gd.dynamic_pass(arr, valid, finals, block, card)[0]
     arr, valid, hist, finals, _ = gd.split_blocks_hist(data, block)
     return gd.dynamic_pass(arr, valid, finals, block, card, hist)[0]
 
 
-@pytest.mark.parametrize("tier", ["static", "l6"])
+def _assemble_equals_plain(inputs):
+    """assemble on the card (one launch) against place_rows_plain then
+    join_rows_plain on the same card tensors. Returns the joined bytes'
+    parts."""
+    from libdeflate_rsx_tpu_torch.ops import assemble as asm
+
+    before = asm.LAUNCHES
+    joined_k, sizes_k = asm.assemble(*inputs)
+    assert asm.LAUNCHES == before + 1
+    joined_p, sizes_p = asm.join_rows_plain(
+        *asm.place_rows_plain(*inputs[:8], inputs.out_cap), inputs.raw,
+        inputs.raw_len, inputs.finals)
+    torch.cuda.synchronize()
+    assert (sizes_k == sizes_p).all() and torch.equal(joined_k, joined_p)
+    return asm.split_parts(joined_k, sizes_k)
+
+
+@pytest.mark.parametrize("tier", ["static", "l4", "l6"])
 def test_assembly_kernels_equal_plain_on_card(card, tier):
-    """place_rows and join_rows on the card equal their plain versions
-    (on the same card tensors): every stream byte, the byte counts, the
-    joined bytes with a random block stored; two launches counted; a
-    block past out_cap raises."""
+    """The assembly kernel on the card equals its plain versions (on the
+    same card tensors): place_rows' every stream byte and byte count,
+    join_rows' and assemble's joined bytes with a random block stored;
+    one launch for each call; a block past out_cap raises."""
     from libdeflate_rsx_tpu_torch.ops import assemble as asm
 
     data = (make_corpus("text", 16384, seed=1)
@@ -373,24 +392,76 @@ def test_assembly_kernels_equal_plain_on_card(card, tier):
     parts = asm.split_parts(joined_k, sizes_k)
     assert parts[1][0] in (0, 1) and len(parts[1]) == 16384 + 5
     assert zlib.decompress(b"".join(parts), -15) == data
+    assert _assemble_equals_plain(inputs) == parts
     small = int(nb_p[0]) - 1
     assert int(asm.place_rows(*place, small)[1][0]) == -1
     with pytest.raises(ValueError, match="output capacity"):
         asm.assemble(*place, raw, raw_len, small)
 
 
+def test_assembly_kernel_empty_batch_on_card(card):
+    from libdeflate_rsx_tpu_torch.ops import assemble as asm
+
+    before = asm.LAUNCHES
+    rows = torch.zeros((0, 4, 49), dtype=torch.uint8, device=card)
+    offs = torch.zeros((0, 4), dtype=torch.int64, device=card)
+    ends = torch.zeros(0, dtype=torch.int64, device=card)
+    hdr = torch.zeros((0, 1), dtype=torch.uint8, device=card)
+    ints = torch.zeros(0, dtype=torch.int32, device=card)
+    finals = torch.zeros(0, dtype=torch.bool, device=card)
+    raw = torch.zeros((0, 8), dtype=torch.uint8, device=card)
+    out, nbytes = asm.place_rows(rows, offs, offs, ends, hdr, ints, ints,
+                                 finals, 64)
+    assert out.shape == (0, 64) and nbytes.shape == (0,)
+    joined, sizes = asm.join_rows(out, nbytes, raw, ends, finals)
+    assert joined.shape == (0,) and sizes.shape == (0,)
+    joined, sizes = asm.assemble(rows, offs, offs, ends, hdr, ints, ints,
+                                 finals, raw, ends, 64)
+    assert joined.shape == (0,) and sizes.shape == (0,)
+    assert asm.LAUNCHES == before
+
+
+@pytest.mark.parametrize("tier", ["static", "l4"])
+def test_assembly_kernel_global_scratch_route_on_card(card, tier):
+    """Blocks of 256 KiB: their streams pass the shared-memory limit, so
+    the kernel builds them in global rows (place_rows in its output,
+    assemble in a scratch buffer); equal to the plain versions, with the
+    random block stored."""
+    from libdeflate_rsx_tpu_torch.ops import assemble as asm
+
+    block = 1 << 18
+    data = (make_corpus("text", block, seed=1)
+            + make_corpus("random", block, seed=2)
+            + make_corpus("pattern", 70000, seed=3))
+    inputs = _tier_rows(tier, data, card, block)
+    limit = asm.smem_limit(card)
+    assert -(-inputs.out_cap // 4) * 4 > limit
+    assert min(inputs.out_cap, asm.stored_cost(inputs.raw.shape[1])) > limit
+    out_k, nb_k = asm.place_rows(*inputs[:8], inputs.out_cap)
+    out_p, nb_p = asm.place_rows_plain(*inputs[:8], inputs.out_cap)
+    torch.cuda.synchronize()
+    assert torch.equal(nb_k, nb_p)
+    assert torch.equal(out_k[:, :inputs.out_cap], out_p)
+    parts = _assemble_equals_plain(inputs)
+    assert len(parts[1]) == block + 5 * 5
+    assert zlib.decompress(b"".join(parts), -15) == data
+
+
 @pytest.mark.parametrize("level", [1, 4, 6])
 def test_device_tiers_finish_blocks_through_the_kernels(card, level,
                                                         monkeypatch):
     """BatchCompressor at levels 1, 4 and 6 on the card: the CPU's bytes,
-    with the assembly kernels launched and, at levels 4 and 6, the table
-    kernel; what the flow copies off the card is the joined streams
-    (1-D uint8) and the blocks' byte counts and sizes ((2, B) int64),
-    no histogram, table or row buffer."""
+    with one assembly launch a pass and, at levels 4 and 6, one table
+    launch a pass; what the flow copies off the card is the joined
+    streams (1-D uint8) and the blocks' byte counts and sizes ((2, B)
+    int64), no histogram, table or row buffer."""
     from libdeflate_rsx_tpu_torch import BatchCompressor
+    from libdeflate_rsx_tpu_torch.models import greedy_static as gs
     from libdeflate_rsx_tpu_torch.ops import assemble as asm
     from libdeflate_rsx_tpu_torch.ops import dyn_tables as dt
 
+    phases = []
+    monkeypatch.setattr(gs, "PHASE_END", phases.append)
     copied = []
     for name in ("cpu", "numpy", "tolist", "item"):
         orig = getattr(torch.Tensor, name)
@@ -408,8 +479,10 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
         (dtype == torch.uint8 and len(shape) == 1)
         or (dtype == torch.int64 and len(shape) == 2 and shape[0] == 2)
         for shape, dtype in copied), copied
-    assert asm.LAUNCHES > places
-    assert (dt.LAUNCHES > tables) == (level >= 4)
+    passes = phases.count("assemble")
+    assert passes >= 1 and asm.LAUNCHES == places + passes
+    assert dt.LAUNCHES == tables + (passes if level >= 4 else 0)
+    assert phases.count("tables") == (passes if level >= 4 else 0)
     cpu = BatchCompressor(level=level, use_device=True,
                           device="cpu").compress_batch(TIER_DATAS)
     assert gpu == cpu

@@ -1,9 +1,11 @@
 """The device table step (ops/dyn_tables.py) on the CPU.
 
 1. A Python mirror of the CUDA kernel's package-merge (csrc/dyn_tables.cu:
-   the leaves sorted by (frequency, symbol) merged at every level with the
-   packages keyed by (weight, first symbol), each symbol's length counted
-   from the selected prefix of every level) against the port's
+   the leaves as packed (frequency << 9 | symbol) keys, sorted; every
+   level merged by 32 lanes, each from its merge-path split, with the
+   packages keyed by (weight, first symbol); a bit mask of the leaves
+   among each level's items; each symbol's length counted from the
+   selected prefix of every level) against the port's
    `length_limited_lengths`, which sorts whole (weight, symbols) tuples,
    on seeded histograms with many ties, at the widths and limits the
    kernel runs (19 precode symbols at 7 bits, 30 offsets at 15, 288
@@ -12,6 +14,13 @@
    `_build_tables_py` (the builder it runs while its native codec does
    not build) on random and edge histograms: tables, header bytes and
    header bits.
+3. A Python mirror of the kernel's parallel header pass (run starts,
+   each run's precode symbols in closed form, their places by an
+   exclusive scan, canonical codes from per-length counts and ranks,
+   each field's bit offset by an exclusive scan, ORed into 32-bit
+   words) against the JAX package's `_precode_rle` and the header that
+   the plain version writes, on seeded tie-heavy (litlen, offset)
+   histogram pairs and edge cases.
 
 Tolerance: exact equality (integers and bytes). The kernel itself is
 held to the plain version on the card (tests/test_torch_cuda.py,
@@ -24,6 +33,11 @@ import numpy as np
 import pytest
 import torch
 
+from libdeflate_rsx_tpu.models.portable.deflate import (
+    _ensure_complete,
+    _precode_rle,
+)
+from libdeflate_rsx_tpu.models.portable.huffman import canonical_codes
 from libdeflate_rsx_tpu.ops.encode_dynamic import _build_tables_py
 from libdeflate_rsx_tpu_torch.models.portable.huffman import (
     length_limited_lengths,
@@ -38,42 +52,53 @@ def merge_lengths(freqs, max_len: int) -> list[int]:
     """The kernel's package-merge, step for step, in Python."""
     freqs = [int(x) for x in freqs]
     lens = [0] * len(freqs)
-    active = [s for s, f in enumerate(freqs) if f]
-    n = len(active)
+    keys = sorted(f << 9 | s for s, f in enumerate(freqs) if f)
+    n = len(keys)
     if n <= 1:
-        for s in active:
-            lens[s] = 1
+        for k in keys:
+            lens[k & 511] = 1
         return lens
-    ls = sorted(active, key=lambda s: (freqs[s], s))
-    lw = [freqs[s] for s in ls]
-    w, f = lw[:], ls[:]
-    posl = [list(range(n))]
-    cnt = [n]
+
+    def leaf_first(key, w, f):
+        return key <= (w << 9 | f)
+
+    w, f = [k >> 9 for k in keys], [k & 511 for k in keys]
+    masks, cnt = [(1 << n) - 1], n
     for _ in range(1, max_len):
-        pw = [w[2 * p] + w[2 * p + 1] for p in range(len(w) // 2)]
-        pf = [f[2 * p] for p in range(len(w) // 2)]
-        nw, nf, pos = [], [], []
-        i = p = 0
-        while i < n or p < len(pw):
-            if p == len(pw) or (i < n and (lw[i] < pw[p] or (
-                    lw[i] == pw[p] and ls[i] <= pf[p]))):
-                pos.append(len(nw))
-                nw.append(lw[i])
-                nf.append(ls[i])
-                i += 1
-            else:
-                nw.append(pw[p])
-                nf.append(pf[p])
-                p += 1
-        w, f = nw, nf
-        posl.append(pos)
-        cnt.append(len(w))
-    c = min(2 * n - 2, cnt[-1])
+        npk = cnt // 2
+        m = n + npk
+        pw = [w[2 * p] + w[2 * p + 1] for p in range(npk)]
+        pf = [f[2 * p] for p in range(npk)]
+        assert max(pw, default=0) < 1 << 25           # 32-bit weights
+        w, f, mask = [0] * m, [0] * m, 0
+        for lane in range(32):
+            d0, d1 = (m * lane) >> 5, (m * (lane + 1)) >> 5
+            lo, hi = max(0, d0 - npk), min(d0, n)
+            while lo < hi:                            # the merge-path split
+                mid = (lo + hi) >> 1
+                p = d0 - 1 - mid
+                if leaf_first(keys[mid], pw[p], pf[p]):
+                    lo = mid + 1
+                else:
+                    hi = mid
+            i, p = lo, d0 - lo
+            for d in range(d0, d1):
+                if p >= npk or (i < n and leaf_first(keys[i], pw[p], pf[p])):
+                    w[d], f[d] = keys[i] >> 9, keys[i] & 511
+                    mask |= 1 << d
+                    i += 1
+                else:
+                    w[d], f[d] = pw[p], pf[p]
+                    p += 1
+        masks.append(mask)
+        cnt = m
+    c = min(2 * n - 2, cnt)
+    takes = [0] * max_len
     for k in reversed(range(max_len)):
-        take = sum(x < c for x in posl[k])
-        for i in range(take):
-            lens[ls[i]] += 1
-        c = 2 * (c - take)
+        takes[k] = bin(masks[k] & ((1 << c) - 1)).count("1")
+        c = 2 * (c - takes[k])
+    for i, k in enumerate(keys):
+        lens[k & 511] = sum(i < t for t in takes)
     return lens
 
 
@@ -195,3 +220,131 @@ def test_plain_keeps_the_device_and_checks_shapes():
     empty = dt.build_tables(ll[:0], of[:0], finals[:0])
     assert [tuple(x.shape) for x in empty] == [(0, 288), (0, 30),
                                                 (0, dt.HDR_CAP), (0,)]
+
+
+PERM = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15)
+EXTRA_BITS = {16: 2, 17: 3, 18: 7}
+
+
+def run_symbols(v: int, length: int) -> list[tuple[int, int]]:
+    """The kernel's closed form of one maximal run's precode symbols
+    (symbol, extra value)."""
+    if v == 0:
+        q, r = divmod(length, 138)
+        out = [(18, 127)] * q
+        if r >= 11:
+            out.append((18, r - 11))
+            r = 0
+        if r >= 3:
+            out.append((17, r - 3))
+            r = 0
+        return out + [(0, 0)] * r
+    q, r = divmod(length - 1, 6)
+    out = [(v, 0)] + [(16, 3)] * q
+    if r >= 3:
+        out.append((16, r - 3))
+        r = 0
+    return out + [(v, 0)] * r
+
+
+def canonical_mirror(lens) -> list[int]:
+    """The kernel's canonical codes: per-length counts, each symbol's
+    rank among its length a prefix count, next_code as a closed-form
+    scan, bit-reversed."""
+    count = [0] * 16
+    rank = []
+    for sym_len in lens:
+        rank.append(count[sym_len])
+        count[sym_len] += 1
+    next_code = [sum(count[j] << (ln - j) for j in range(1, ln))
+                 for ln in range(16)]
+    return [int(format(next_code[ln] + r, f"0{ln}b")[::-1], 2) if ln else 0
+            for ln, r in zip(lens, rank)]
+
+
+def header_mirror(ll_lens, of_lens, final: bool):
+    """The kernel's header pass in Python: (the run-length symbols and
+    extras, header bytes, header bits)."""
+    ll_lens, of_lens = list(ll_lens), list(of_lens)
+    num_ll = max(257, max(i for i, x in enumerate(ll_lens) if x) + 1)
+    num_of = max(1, max((i + 1 for i, x in enumerate(of_lens) if x),
+                        default=1))
+    lens = ll_lens[:num_ll] + of_lens[:num_of]
+    starts = [i for i in range(len(lens)) if i == 0 or lens[i] != lens[i - 1]]
+    runs = [(lens[a], b - a) for a, b in zip(starts, starts[1:] + [len(lens)])]
+    counts = [len(run_symbols(*r)) for r in runs]
+    places = [sum(counts[:k]) for k in range(len(runs))]       # the scan
+    syms = [None] * sum(counts)
+    for at, run in zip(places, runs):
+        for k, sym in enumerate(run_symbols(*run)):
+            syms[at + k] = sym
+    pre_freq = [0] * 19
+    for sym, _ in syms:
+        pre_freq[sym] += 1
+    pre_lens = [int(x) for x in _ensure_complete(
+        np.array(merge_lengths(pre_freq, 7)))]
+    pre_codes = canonical_mirror(pre_lens)
+    assert pre_codes == canonical_codes(np.array(pre_lens)).tolist()
+    nexp = max(4, max((i + 1 for i in range(19) if pre_lens[PERM[i]]),
+                      default=0))
+    fields = [((1 if final else 0) | 4 | (num_ll - 257) << 3
+               | (num_of - 1) << 8 | (nexp - 4) << 13, 17)]
+    fields += [(pre_lens[PERM[i]], 3) for i in range(nexp)]
+    fields += [(pre_codes[sym] | ev << pre_lens[sym],
+                pre_lens[sym] + EXTRA_BITS.get(sym, 0)) for sym, ev in syms]
+    words = [0] * (dt.HDR_CAP // 4)
+    bit = 0
+    for value, width in fields:                 # offsets: the scan
+        assert value < 1 << width
+        words[bit >> 5] |= (value << (bit & 31)) & 0xFFFFFFFF
+        if (bit & 31) + width > 32:
+            words[(bit >> 5) + 1] |= value >> (32 - (bit & 31))
+        bit += width
+    hdr = b"".join(x.to_bytes(4, "little") for x in words)
+    return syms, hdr, bit
+
+
+def header_pairs():
+    """(ll_hist, of_hist) pairs: tie-heavy histograms at widths 288 and
+    30, the edge pairs, one used symbol, all 288 used, and zero runs
+    past 138."""
+    lls = tie_histograms(288, 14, 300, seed=9)
+    ofs = tie_histograms(30, 15, 300, seed=10)
+    pairs = list(zip(lls, ofs)) + edge_histograms()
+    z_ll, z_of = np.zeros(288, np.int64), np.zeros(30, np.int64)
+    for used in ([0], [0, 200], [5, 150, 287], [140, 283]):
+        ll = z_ll.copy()
+        ll[used] = 3
+        pairs += [(ll, z_of), (ll, np.ones(30, np.int64))]
+    return pairs
+
+
+def test_header_mirror_equals_precode_rle_and_the_plain_header():
+    pairs = header_pairs()
+    ll = torch.from_numpy(np.stack([p[0] for p in pairs])).to(torch.uint16)
+    of = torch.from_numpy(np.stack([p[1] for p in pairs])).to(torch.uint16)
+    finals = torch.from_numpy(np.arange(len(pairs)) % 2 == 1)
+    ll_tabs, of_tabs, hdr, hdr_bits = dt.build_tables_plain(ll, of, finals)
+    long_zero = 0
+    for i, (llh, ofh) in enumerate(pairs):
+        llf = llh.copy()
+        llf[256] += 1
+        ll_lens = (ll_tabs[i] >> 16).tolist()
+        of_lens = (of_tabs[i] >> 16).tolist()
+        assert ll_lens == list(_ensure_complete(np.array(
+            merge_lengths(llf, 14)))), i
+        assert of_lens == list(_ensure_complete(np.array(
+            merge_lengths(ofh, 15)))), i
+        assert canonical_mirror(ll_lens) == (ll_tabs[i] & 0xFFFF).tolist()
+        syms, got, bits = header_mirror(ll_lens, of_lens, bool(finals[i]))
+        num_ll = max(257, max(j for j, x in enumerate(ll_lens) if x) + 1)
+        num_of = max(1, max((j + 1 for j, x in enumerate(of_lens) if x),
+                            default=1))
+        want = _precode_rle(np.array(ll_lens[:num_ll] + of_lens[:num_of]))
+        assert [s for s, _ in syms] == want[0].tolist(), i
+        assert [e for _, e in syms] == want[1].tolist(), i
+        assert [EXTRA_BITS.get(s, 0) for s, _ in syms] == want[2].tolist()
+        long_zero += any(s == 18 and e == 127 for s, e in syms)
+        assert bits == int(hdr_bits[i]), i
+        assert got == hdr[i].numpy().tobytes(), i
+    assert long_zero >= 4                   # zero runs past 138 were met

@@ -33,16 +33,18 @@ def global_data():
 
 
 _WORKER = r"""
-import json, sys
+import datetime, json, sys
 import torch
 torch.set_num_threads(2)
-rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 sys.path.insert(0, sys.argv[4])
 from tests import test_torch_multihost as t
+from tests.test_torch_shard import RENDEZVOUS
 from libdeflate_rsx_tpu_torch import budget
 from libdeflate_rsx_tpu_torch.parallel import multihost as mh
 
-mh.initialize(f"tcp://127.0.0.1:{port}", 2, rank, backend="gloo")
+mh.initialize(init, 2, rank, backend="gloo",
+              timeout=datetime.timedelta(seconds=RENDEZVOUS))
 mh.initialize()                       # joined already: a no-op
 batch = t.global_batch()
 outs = mh.compress_local_shard(batch, device="cpu")

@@ -16,6 +16,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 import zlib
 
 import pytest
@@ -25,6 +26,8 @@ from tests._port_corpus import make_corpus, mutated_streams
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANKS = 2
 TIMEOUT = 240       # seconds for both ranks
+RENDEZVOUS = 120    # seconds a rank waits for the others: a rank left
+                    # alone fails with its own message within TIMEOUT
 NBLOCKS = (1, 3, 8, 17)
 FORMATS = ("deflate", "zlib", "gzip")
 DEC_CAP = 1024      # out_cap of the mixed decode set
@@ -89,17 +92,17 @@ def decode_mixed():
 
 
 _WORKER = r"""
-import json, sys, zlib
+import datetime, json, sys, zlib
 import torch
 torch.set_num_threads(2)
-rank, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 sys.path.insert(0, sys.argv[4])
 from tests import test_torch_shard as t
 from libdeflate_rsx_tpu_torch.parallel import (
     ShardedCompressor, ShardedDecompressor, multihost, stream_mesh)
 
-multihost.initialize(f"tcp://127.0.0.1:{port}", t.RANKS, rank,
-                     backend="gloo")
+multihost.initialize(init, t.RANKS, rank, backend="gloo",
+                     timeout=datetime.timedelta(seconds=t.RENDEZVOUS))
 hx = lambda b: None if b is None else b.hex()
 res = {}
 for name, (data, bs) in t.static_cases().items():
@@ -130,27 +133,49 @@ json.dump(res, open(out, "w"))
 
 
 def run_ranks(worker: str, tmp, n: int = RANKS) -> list:
-    """Run `worker` as n gloo ranks (argv: rank, port, result file, repo
-    root); kill every rank that outlasts TIMEOUT. Returns the ranks'
-    results."""
-    from libdeflate_rsx_tpu_torch.parallel.multihost import free_port
-    port = free_port()
+    """Run `worker` as n gloo ranks (argv: rank, rendezvous URL, result
+    file, repo root) that meet at a file rendezvous in `tmp`. When a rank
+    fails or the ranks outlast TIMEOUT, every rank is killed and the
+    error shows each rank's exit code and the tail of its stderr.
+    Returns the ranks' results."""
+    from libdeflate_rsx_tpu_torch.parallel.multihost import file_rendezvous
+    init = file_rendezvous(str(tmp))
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     outs = [str(tmp / f"rank{r}.json") for r in range(n)]
+    errs = [open(tmp / f"rank{r}.err", "w+") for r in range(n)]
     procs = [subprocess.Popen(
-        [sys.executable, "-c", worker, str(r), str(port), outs[r], ROOT],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        [sys.executable, "-c", worker, str(r), init, outs[r], ROOT],
+        cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=errs[r],
         text=True) for r in range(n)]
+    deadline = time.monotonic() + TIMEOUT
     try:
-        for r, p in enumerate(procs):
-            _, err = p.communicate(timeout=TIMEOUT)
-            assert p.returncode == 0, f"rank {r} failed:\n{err[-3000:]}"
+        while any(p.poll() is None for p in procs) \
+                and time.monotonic() < deadline \
+                and all(p.poll() in (None, 0) for p in procs):
+            time.sleep(0.1)
+        codes = [p.poll() for p in procs]
+        if codes != [0] * n:
+            why = ("a rank failed" if any(c not in (None, 0) for c in codes)
+                   else f"the ranks outlasted {TIMEOUT} s")
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            tails = []
+            for r, f in enumerate(errs):
+                f.seek(0)
+                tails.append(f"rank {r} (exit {codes[r]}):\n"
+                             f"{f.read()[-3000:]}")
+            raise AssertionError(f"{why}; every rank killed\n"
+                                 + "\n".join(tails))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.wait()
+        for f in errs:
+            f.close()
     return [json.load(open(o)) for o in outs]
 
 
