@@ -121,12 +121,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    bytes that hold bits, not the rows' padded width;
 24. the resolve kernel (pass 2) against its plain version on the card:
    pass 1's tokens of the 256 slices, the 17 L6 items and 1 MiB of one
-   byte at zlib-6, the hand-built and edge columns of
-   tests/_port_corpus.py (resolve_cases), T == 0 and B == 0: outlen, ok
-   and the bytes [0, outlen) of every ok row equal; then timed on the
-   L6 items' tokens (the record) and the slices', beside the plain
-   version on the card; the bound counts the real tokens (stats[:, 3]),
-   not the padded columns.
+   byte at zlib-6 (the strided view the decoder hands over, with and
+   without pass 1's token counts), the hand-built and edge columns of
+   tests/_port_corpus.py (resolve_cases, a 1 MiB chain of distance-4
+   matches among them), T == 0 and B == 0: outlen, ok and the bytes
+   [0, outlen) of every ok row equal; then timed on the L6 items'
+   tokens (the record) and the slices', with the counts as the decoder
+   passes them, beside the plain version on the card, and each of the
+   call's kernels' device time (torch.profiler) logged beside it; the
+   bound counts the real tokens (stats[:, 3]), not the padded columns.
 
 Phases 13-21 drive the level 0-5 tiers, the checksums, the memory
 budget and the sharded paths, the port's modules with no kernel of
@@ -1628,15 +1631,15 @@ def phase_assembly_kernel(items, comp, card: str, l6: dict):
                   max(errs), ms, plain_ms, nbytes_moved)
 
 
-def resolve_vs_plain(tokens, out_cap: int, label: str):
+def resolve_vs_plain(tokens, out_cap: int, label: str, counts=None):
     """The resolve kernel and its plain version on the card on the same
-    columns: outlen and ok equal, and the bytes [0, outlen) of every ok
-    row. Returns (max abs err, ok rows, rows)."""
+    columns (and token counts): outlen and ok equal, and the bytes [0,
+    outlen) of every ok row. Returns (max abs err, ok rows, rows)."""
     import torch
     from libdeflate_rsx_tpu_torch.ops import resolve as rs
 
-    out_k, len_k, ok_k = rs.resolve_batch(tokens, out_cap)
-    out_p, len_p, ok_p = rs.resolve_batch_plain(tokens, out_cap)
+    out_k, len_k, ok_k = rs.resolve_batch(tokens, out_cap, counts)
+    out_p, len_p, ok_p = rs.resolve_batch_plain(tokens, out_cap, counts)
     torch.cuda.synchronize()
     assert out_k.shape == out_p.shape == (tokens.shape[0], out_cap), label
     assert torch.equal(len_k, len_p), f"{label}: outlen differs"
@@ -1663,6 +1666,48 @@ def pass1_columns(streams, out_cap: int):
     return tok[:, :max(1, int(stats[:, 3].max()))], stats
 
 
+def kernel_times(fn, reps: int, tries: int = 3) -> dict:
+    """{kernel name: device microseconds per call} of reps calls of fn
+    under torch.profiler (a name without its namespace and arguments);
+    profiled again, up to `tries` times, when a run records no device
+    time, which happens at random on the card machine."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    got = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and \
+                    e.self_device_time_total > 0:
+                name = e.key.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].split("::")[-1].split("<")[0] \
+                    or e.key
+                got[name] = got.get(name, 0.0) + \
+                    e.self_device_time_total / reps
+        if got:
+            break
+    return got
+
+
+def resolve_stages(tokens, out_cap: int, counts, reps: int) -> str:
+    """Device microseconds of each kernel (and the scan state's clear) of
+    one resolve call, the mean of reps calls (torch.profiler), as text."""
+    from libdeflate_rsx_tpu_torch.ops import resolve as rs
+
+    got = kernel_times(lambda: rs.resolve_batch(tokens, out_cap, counts),
+                       reps)
+    return ", ".join(f"{k} {v:.1f} us" for k, v in sorted(got.items())) \
+        or "not recorded by the profiler"
+
+
 def resolve_bytes(stats, outlen) -> int:
     """Bytes resolve must move: each real token read once (stats[:, 3]),
     each output byte up to outlen written once, outlen and ok."""
@@ -1673,14 +1718,15 @@ def resolve_bytes(stats, outlen) -> int:
 def phase_resolve_kernel(comp, slices, card: str):
     """Phase 24: the resolve kernel against its plain version on the
     card: pass 1's tokens of the 256 zlib-6 slices, the 17 L6 items and
-    1 MiB of one byte at zlib-6; the hand-built columns of
-    tests/test_torch_resolve.py and the edge columns (tests/_port_corpus.py
-    resolve_cases: a 1 MiB dist-1 run, periodic chains at d 2..33, d
+    1 MiB of one byte at zlib-6, with and without pass 1's token counts;
+    the hand-built columns of tests/test_torch_resolve.py and the edge
+    columns (tests/_port_corpus.py resolve_cases: a 1 MiB dist-1 run and
+    a 1 MiB chain of distance-4 matches, periodic chains at d 2..33, d
     32,768 across windows, matches before the start, sums at and past
     out_cap, NOP and kind-3 tokens anywhere, seeded random columns with
     both); T == 0 and B == 0. Then the record on the L6 items' tokens
-    (the main path's decode), with the 256 slices beside it. Returns the
-    record."""
+    (the main path's decode, with its counts), with the 256 slices
+    beside it, and each kernel's device time. Returns the record."""
     import numpy as np
     import torch
     from _port_corpus import resolve_cases
@@ -1694,11 +1740,13 @@ def phase_resolve_kernel(comp, slices, card: str):
             ("1 MiB of one byte at zlib-6", [raw_z(one)], ITEM))
     for label, streams, cap in sets:
         tok, stats = pass1_columns(streams, cap)
-        err, n_ok, n = resolve_vs_plain(tok, cap, label)
-        errs.append(err)
+        counts = torch.from_numpy(stats[:, 3].copy()).cuda()
+        for with_counts in (None, counts):
+            err, n_ok, n = resolve_vs_plain(tok, cap, label, with_counts)
+            errs.append(err)
         log(f"resolve vs plain on pass 1's tokens of the {label}: equal on "
             f"{n} rows ({n_ok} ok), {int(stats[:, 3].sum())} tokens, "
-            f"max abs err {err}")
+            f"with and without the token counts, max abs err {err}")
     for label, cols, cap in resolve_cases():
         tok = torch.from_numpy(np.stack(cols)).cuda()
         err, n_ok, n = resolve_vs_plain(tok, cap, label)
@@ -1717,18 +1765,22 @@ def phase_resolve_kernel(comp, slices, card: str):
     times = {}
     for label, streams, cap in sets[:2]:
         tok, stats = pass1_columns(streams, cap)
-        ms = time_cuda(lambda: rs.resolve_batch(tok, cap), KERNEL_REPS)
+        counts = torch.from_numpy(stats[:, 3].copy()).cuda()
+        ms = time_cuda(lambda: rs.resolve_batch(tok, cap, counts),
+                       KERNEL_REPS)
         plain_ms = time_cuda(lambda: rs.resolve_batch_plain(tok, cap),
                              KERNEL_REPS)
-        _, outlen, _ = rs.resolve_batch(tok, cap)
+        _, outlen, _ = rs.resolve_batch(tok, cap, counts)
         nbytes = resolve_bytes(stats, outlen.cpu().numpy())
         times[label] = (ms, plain_ms, nbytes)
+        stages = resolve_stages(tok, cap, counts, KERNEL_REPS)
         log(f"resolve on the {label}: kernel {ms:.3f} ms, plain version "
             f"{plain_ms:.3f} ms on the card (CUDA events, {KERNEL_REPS} "
             f"calls each); {int(stats[:, 3].sum())} tokens (max "
             f"{int(stats[:, 3].max())} a column), {int(outlen.sum())} bytes "
             f"out; bound {nbytes / HBM_BYTES_PER_MS:.6f} ms ({nbytes} "
-            f"bytes) [{card}]")
+            f"bytes); device time per call (torch.profiler, {KERNEL_REPS} "
+            f"calls): {stages} [{card}]")
     ms, plain_ms, nbytes = times[sets[1][0]]
     return record("resolve", "ops/resolve.py:47", max(errs), ms, plain_ms,
                   nbytes)

@@ -740,15 +740,18 @@ def decode_streams(streams: list[bytes], out_cap: int = OUT_CAP,
 def resolve_streams(tokens, stats, out_cap: int, where: str = "device"):
     """Pass 2 for every stream of a pass-1 batch, whatever its mode:
     list[bytes | None], None where resolution fails. where="device"
-    resolves on the tokens' device (only bytes cross to the host);
-    "host" with the numpy resolver on the host pool."""
+    resolves on the tokens' device (only bytes cross to the host), each
+    column read up to its stream's token count; "host" with the numpy
+    resolver on the host pool."""
     from ..hostpool import pmap
     from .resolve import resolve_batch
 
     n = stats.shape[0]
     ntok = max(1, int(stats[:, 3].max()))
     if where == "device":
-        out, outlen, ok = resolve_batch(tokens[:, :ntok], out_cap)
+        counts = torch.from_numpy(np.ascontiguousarray(stats[:, 3]))
+        out, outlen, ok = resolve_batch(tokens[:, :ntok], out_cap,
+                                        counts.to(tokens.device))
         out_h = out[:, :max(1, int(stats[:, 1].max()))].cpu().numpy()
         len_h = outlen.cpu().numpy()
         ok_h = ok.cpu().numpy()

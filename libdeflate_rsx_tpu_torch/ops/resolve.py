@@ -4,11 +4,13 @@ Port of `libdeflate_rsx_tpu/ops/resolve.py::resolve_batch_jax` (whose
 host counterpart is the JAX package's `native/codec.c`
 `resolve_tokens_c`). `resolve_batch` launches the CUDA kernel
 `csrc/resolve.cu` for CUDA tensors and runs `resolve_batch_plain` for
-CPU tensors. The kernel scans each stream's token extents, resolves
-every 4 KiB window of output of every stream at once (a source before
-the window becomes a marker), then walks each stream's windows in order
-and replaces the markers by their final bytes (the source notes the
-design and its bound).
+CPU tensors. The kernel's call scans each stream's token extents in one
+pass (a chained scan with a decoupled look-back), resolves every 8 KiB
+window of output of every stream at once (a covering map and pointer
+jumping in shared memory; a source before the window becomes a marker),
+then walks each stream's windows in order and reads the markers' bytes
+from a ring of the bytes before them (the source notes the design and
+its bound).
 
 `resolve_batch_plain` is plain PyTorch on either device: every output
 position finds the token that covers it (a binary search in the token
@@ -41,12 +43,13 @@ def _lib():
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.ldrsx_resolve_scratch.argtypes = [i, i, q]
         lib.ldrsx_resolve_scratch.restype = ctypes.c_int64
-        lib.ldrsx_resolve.argtypes = [p, q, i, i, q, p, p, q, p, p, p]
+        lib.ldrsx_resolve.argtypes = [p, q, i, p, i, q, p, p, q, p, p, p]
         lib.ldrsx_resolve.restype = ctypes.c_int
     return lib
 
 
-def resolve_batch(tokens: torch.Tensor, out_cap: int):
+def resolve_batch(tokens: torch.Tensor, out_cap: int,
+                  counts: torch.Tensor | None = None):
     """tokens (B, T) int32 -> (bytes (B, out_cap) uint8, outlen (B,) int32,
     ok (B,) bool), on the tokens' device.
 
@@ -54,19 +57,26 @@ def resolve_batch(tokens: torch.Tensor, out_cap: int):
     reaches before the start of its output. Bytes at or past a stream's
     outlen, and every byte of a row that is not ok, are unspecified;
     callers slice to outlen. NOP tokens (kind 0) and kind 3 may appear
-    anywhere and emit nothing. A CUDA tensor launches the kernel, with
-    no host sync; the columns may be a strided view (row stride only).
+    anywhere and emit nothing. `counts` (B,) int32, optional (pass 1's
+    per-stream token counts, `stats[:, 3]`): the tokens of row b at or
+    past counts[b] are not read and emit nothing. A CUDA tensor launches
+    the kernel, with no host sync; the columns may be a strided view
+    (row stride only).
     """
     global LAUNCHES
     if tokens.dim() != 2 or out_cap < 0:
         raise ValueError("resolve_batch: tokens must be (B, T), out_cap >= 0")
+    if counts is not None and counts.shape != tokens.shape[:1]:
+        raise ValueError("resolve_batch: counts must be (B,)")
     if tokens.device.type == "cpu":
-        return resolve_batch_plain(tokens, out_cap)
+        return resolve_batch_plain(tokens, out_cap, counts)
     tokens = tokens.to(torch.int32)
     b, t = tokens.shape
     if t > 1 and tokens.stride(1) != 1:
         tokens = tokens.contiguous()
     dev = tokens.device
+    if counts is not None:
+        counts = counts.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty((b, out_cap), dtype=torch.uint8, device=dev)
     outlen = torch.empty(b, dtype=torch.int32, device=dev)
     ok = torch.empty(b, dtype=torch.bool, device=dev)
@@ -76,8 +86,9 @@ def resolve_batch(tokens: torch.Tensor, out_cap: int):
     scratch = torch.empty(lib.ldrsx_resolve_scratch(b, t, out_cap),
                           dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.ldrsx_resolve(tokens.data_ptr(), tokens.stride(0), t, b,
-                               out_cap, scratch.data_ptr(), out.data_ptr(),
+        rc = lib.ldrsx_resolve(tokens.data_ptr(), tokens.stride(0), t,
+                               None if counts is None else counts.data_ptr(),
+                               b, out_cap, scratch.data_ptr(), out.data_ptr(),
                                out_cap, outlen.data_ptr(), ok.data_ptr(),
                                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -86,11 +97,16 @@ def resolve_batch(tokens: torch.Tensor, out_cap: int):
     return out, outlen, ok
 
 
-def resolve_batch_plain(tokens: torch.Tensor, out_cap: int):
+def resolve_batch_plain(tokens: torch.Tensor, out_cap: int,
+                        counts: torch.Tensor | None = None):
     """Plain version of the kernel, on any device: `resolve_batch`'s
     function by a binary-search covering map and pointer doubling
     (module docstring)."""
     tokens = tokens.to(torch.int32)
+    if counts is not None:
+        idx = torch.arange(tokens.shape[1], device=tokens.device)
+        keep = idx < counts.to(tokens.device).reshape(-1, 1)
+        tokens = torch.where(keep, tokens, 0)
     if tokens.shape[1] == 0:
         tokens = torch.zeros((tokens.shape[0], 1), dtype=torch.int32,
                              device=tokens.device)

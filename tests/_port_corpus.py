@@ -413,6 +413,17 @@ def dist1_run_columns(cap=1 << 20):
     return [col(toks, len(toks))], cap
 
 
+def chained_d4_columns(cap=1 << 20):
+    """1 MiB of a 4-byte period coded as matches of 8 at distance 4, each
+    reading the one before (the deepest chain per byte that a match
+    length of 8 allows), ending exactly at out_cap."""
+    n, rest = divmod(cap - 4, 8)
+    toks = [lit(1), lit(2), lit(3), lit(4)] + [match(8, 4)] * n
+    if rest:
+        toks.append(match(rest, 4))
+    return [col(toks, len(toks))], cap
+
+
 def periodic_columns(cap=65536):
     """Periodic chains at distances 2..33: one period of literals, then
     matches of 258 at that distance to near out_cap."""
@@ -507,6 +518,9 @@ def _resolve_builders():
     for seed in (30, 31):
         b[f"random kind 3 seed {seed}"] = lambda seed=seed: random_columns(
             seed, cap=1 << 16, T=12000, ntok=11990, kind3=True)
+    b["chained d-4 run of 1 MiB"] = chained_d4_columns
+    b["random 512 KiB seed 32"] = lambda: random_columns(
+        32, n=3, cap=1 << 19, T=60000, ntok=59990, kind3=True)
     return b
 
 

@@ -489,15 +489,16 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
     assert [zlib.decompress(c, -15) for c in gpu] == TIER_DATAS
 
 
-def _resolve_equal(tokens, out_cap):
-    """The resolve kernel against its plain version on the same columns:
-    outlen and ok equal, and the bytes [0, outlen) of every ok row."""
+def _resolve_equal(tokens, out_cap, counts=None):
+    """The resolve kernel against its plain version on the same columns
+    (and token counts): outlen and ok equal, and the bytes [0, outlen)
+    of every ok row."""
     from libdeflate_rsx_tpu_torch.ops import resolve as rs
 
     before = rs.LAUNCHES
-    out, outlen, ok = rs.resolve_batch(tokens, out_cap)
+    out, outlen, ok = rs.resolve_batch(tokens, out_cap, counts)
     assert rs.LAUNCHES == before + (tokens.shape[0] > 0)
-    pout, plen, pok = rs.resolve_batch_plain(tokens, out_cap)
+    pout, plen, pok = rs.resolve_batch_plain(tokens, out_cap, counts)
     torch.cuda.synchronize()
     assert out.shape == pout.shape == (tokens.shape[0], out_cap)
     assert torch.equal(outlen, plen) and torch.equal(ok, pok)
@@ -516,8 +517,9 @@ def test_resolve_kernel_equals_plain_on_card(card, case):
 @pytest.mark.parametrize("out_cap", [65536, 1 << 20])
 def test_resolve_kernel_on_pass1_tokens(card, out_cap):
     """Pass 1's tokens as the decoder hands them over (a strided view of
-    its buffer), every well-formed stream resolved to its bytes; T == 0
-    and B == 0."""
+    its buffer, with and without its token counts), every well-formed
+    stream resolved to its bytes; counts that cut the columns short; T
+    == 0 and B == 0."""
     from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
     from libdeflate_rsx_tpu_torch.ops.resolve import resolve_batch
 
@@ -529,15 +531,20 @@ def test_resolve_kernel_on_pass1_tokens(card, out_cap):
     args = it.pack_streams(streams, it.in_cap_bucket(streams), card)[:3]
     tok, st = it.pass1(*args, out_cap)
     ntok = int(st[:, 3].max())
+    counts = st[:, 3].contiguous()
     ok = _resolve_equal(tok[:, :ntok], out_cap)
-    out, outlen, _ = resolve_batch(tok[:, :ntok], out_cap)
+    assert torch.equal(ok, _resolve_equal(tok[:, :ntok], out_cap, counts))
+    out, outlen, _ = resolve_batch(tok[:, :ntok], out_cap, counts)
     for i, d in enumerate(datas + [b"\x5a" * (1 << 20)]):
         if len(d) <= out_cap:
             assert bool(ok[i]) and out[i, :len(d)].cpu().numpy().tobytes() \
                 == d
+    _resolve_equal(tok[:, :ntok], out_cap, counts // 3)
     for shape in ((3, 0), (0, 5)):
-        _resolve_equal(torch.zeros(shape, dtype=torch.int32, device=card),
-                       out_cap)
+        tok0 = torch.zeros(shape, dtype=torch.int32, device=card)
+        _resolve_equal(tok0, out_cap)
+        _resolve_equal(tok0, out_cap, torch.zeros(shape[0], dtype=torch.int32,
+                                                  device=card))
 
 
 def test_two_pass_decode_goes_through_the_resolve_kernel(card):
