@@ -6,9 +6,9 @@ Usage: python3 chip_smoke.py      (from the root of a checkout; one card)
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
-2. build: the six CUDA kernel sources (pass 1, inflate_v2,
-   inflate_static, dyn_tables, assemble_rows, resolve), from csrc/ with
-   one nvcc each, all started together (build/kernels/);
+2. build: the seven CUDA kernel sources (pass 1, inflate_v2,
+   inflate_static, dyn_tables, assemble_rows, resolve, match_l6), from
+   csrc/ with one nvcc each, all started together (build/kernels/);
 3. pass 1 (the segment route's kernels) against its plain PyTorch
    version, both on the card, at the 64 KiB out_cap: zlib streams of
    every test-corpus kind and level, multi-block, garbage, truncated and
@@ -18,9 +18,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens and stats equal; then again on the main path's 256 zlib-6
    slices, which give the kernel's timed record and its bound;
 4. compress: BatchCompressor(level=6, use_device=True) over the corpus
-   in 1 MiB items, every output checked with zlib; the table kernel and
-   the assembly kernel must each have launched once a device pass
-   (their records' launches);
+   in 1 MiB items, every output checked with zlib; the match kernel, the
+   table kernel and the assembly kernel must each have launched once a
+   device pass (their records' launches); the first N_CPU_ITEMS items
+   again with device="cpu" (the match finder's plain version), equal
+   bytes;
 5. decompress: BatchDecompressor(use_device=True, resolve="device") on
    the compressed items and on 256 zlib-6 streams of 64 KiB slices,
    byte-exact with no host fallback, the resolve kernel launched in
@@ -129,12 +131,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens (the record) and the slices', with the counts as the decoder
    passes them, beside the plain version on the card, and each of the
    call's kernels' device time (torch.profiler) logged beside it; the
-   bound counts the real tokens (stats[:, 3]), not the padded columns.
+   bound counts the real tokens (stats[:, 3]), not the padded columns;
+25. the match kernel (match_l6, the L6 match finder) against its plain
+   version on the card: the 259 windows of the L6 pass over the corpus
+   items (the main path's shape), zeros and random windows of that
+   width, and the trap windows of tests/_port_corpus.py l6_windows (the
+   rank rule, hist_start, distances 32,767-32,769, the tail and padding,
+   ties, the decay, a first block, a short last block) in 16 KiB
+   blocks: ml and dist equal; then timed on the 259 windows (the
+   record) beside the plain version on the card; the bound counts the
+   window rows in and (ml, dist) out.
 
 Phases 13-21 drive the level 0-5 tiers, the checksums, the memory
 budget and the sharded paths, the port's modules with no kernel of
 their own; the kernels' launches there are logged and asserted, and
-their records stay those of phases 3-12 and 22-24.
+their records stay those of phases 3-12 and 22-25.
 Each kernel's record (ms, plain_ms, bound_ms) is taken on its path's
 own inputs, where every input and output byte is needed: the bound is
 those bytes over the card's memory rate. The last two lines are the
@@ -179,7 +190,7 @@ N_SMALL = (1, 7)        # small-batch path batch sizes
 N_STATIC = 128          # Z_FIXED slices through inflate_device_static
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM device memory, 3.35 TB/s
 KERNELS = ("inflate_tokens", "inflate_v2", "inflate_static", "dyn_tables",
-           "assemble_rows", "resolve")
+           "assemble_rows", "resolve", "match_l6")
 TIER_LEVELS = (0, 1, 4)     # the stored, static and dynamic compress tiers
 N_CPU_ITEMS = 2             # items also compressed with device="cpu"
 BUDGET_OVER = 1.2           # phases 18, 20: one-pass need / card memory
@@ -522,6 +533,19 @@ def phase_compress(data: bytes):
     log(f"compress: {len(items)} items of <= 1 MiB ({len(data)} bytes) "
         f"round-trip through zlib; ratio {ratio:.4f}; wall {dt:.3f} s")
     return items, comp
+
+
+def phase_compress_cpu(items, comp):
+    """The first N_CPU_ITEMS L6 items again with device="cpu", where the
+    match finder runs its plain version: equal bytes."""
+    from libdeflate_rsx_tpu_torch import BatchCompressor
+
+    t0 = time.perf_counter()
+    cpu = BatchCompressor(level=6, use_device=True, device="cpu") \
+        .compress_batch(items[:N_CPU_ITEMS])
+    assert cpu == comp[:N_CPU_ITEMS], "L6: card bytes != CPU bytes"
+    log(f"compress L6: the first {N_CPU_ITEMS} items on the CPU equal the "
+        f"card's ({time.perf_counter() - t0:.2f} s)")
 
 
 def phase_decompress(name, streams, originals, caps):
@@ -1786,6 +1810,77 @@ def phase_resolve_kernel(comp, slices, card: str):
                   nbytes)
 
 
+def l6_windows_of(datas, block: int):
+    """The L6 pass's match-finder inputs for these items, as the encode
+    flow builds them (history prefixes, first and short last blocks), on
+    the card: (rows, valid, hist_start, s)."""
+    import torch
+    from libdeflate_rsx_tpu_torch.models import greedy_dynamic as gd
+
+    _, arr, valid, hist, _ = gd.split_many(datas, block, True)
+    return (*(torch.from_numpy(x).cuda() for x in (arr, valid, hist)),
+            gd.HIST + block)
+
+
+def match_vs_plain(rows, valid, hist, s, label: str) -> int:
+    """The match kernel and its plain version on the card on the same
+    windows: ml and dist equal. Returns the max abs err."""
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+    from libdeflate_rsx_tpu_torch.ops.encode_dynamic import \
+        find_matches_l6_plain
+
+    got = ml6.find_matches_l6(rows, valid, hist, s)
+    want = find_matches_l6_plain(rows, valid, hist, s)
+    torch.cuda.synchronize()
+    err = max(int((g - w).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    assert all(g.dtype == torch.int64 and torch.equal(g, w)
+               for g, w in zip(got, want)), \
+        f"match_l6 {label}: kernel != plain (max abs err {err})"
+    return err
+
+
+def phase_match_kernel(items, card: str):
+    """Phase 25: the match kernel against its plain version on the card,
+    on the L6 pass's windows of the corpus items, zeros and random
+    windows of that width, and the trap windows of the CPU tests; then
+    its record, timed on the corpus windows. Returns the record."""
+    import numpy as np
+    import torch
+    from _port_corpus import l6_windows
+    from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+    from libdeflate_rsx_tpu_torch.ops.encode_dynamic import \
+        find_matches_l6_plain
+
+    rows, valid, hist, s = l6_windows_of(items, SLICE)
+    errs = [match_vs_plain(rows, valid, hist, s, "the corpus windows")]
+    rng = np.random.default_rng(25)
+    edge = [bytes(2 * SLICE), rng.integers(0, 256, 2 * SLICE - 999,
+                                           dtype=np.uint8).tobytes()]
+    errs.append(match_vs_plain(*l6_windows_of(edge, SLICE),
+                               "zeros and random windows"))
+    labels, t_rows, t_valid, t_hist, t_s = l6_windows()
+    errs.append(match_vs_plain(*(torch.from_numpy(x).cuda()
+                                 for x in (t_rows, t_valid, t_hist)), t_s,
+                               "the trap windows"))
+    log(f"match_l6 vs plain: equal on the {rows.shape[0]} corpus windows "
+        f"(s = {s}), 2 zeros and 2 random windows of that width and "
+        f"{len(labels)} trap windows (s = {t_s}: {', '.join(labels)}), max "
+        f"abs err {max(errs)}")
+    ms = time_cuda(lambda: ml6.find_matches_l6(rows, valid, hist, s),
+                   KERNEL_REPS)
+    plain_ms = time_cuda(
+        lambda: find_matches_l6_plain(rows, valid, hist, s), KERNEL_REPS)
+    b = rows.shape[0]
+    nbytes = rows.numel() + 8 * b + 2 * 8 * b * s
+    log(f"match_l6 on the {b} corpus windows: kernel {ms:.3f} ms, plain "
+        f"version {plain_ms:.3f} ms on the card (CUDA events, "
+        f"{KERNEL_REPS} calls each) [{card}]")
+    return record("match_l6", "ops/encode_dynamic.py:194", max(errs), ms,
+                  plain_ms, nbytes)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1797,6 +1892,7 @@ def main() -> int:
     from libdeflate_rsx_tpu_torch.ops import inflate_static as st
     from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
     from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
+    from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
     from libdeflate_rsx_tpu_torch.ops import resolve as rs
 
     card = phase_card()
@@ -1805,16 +1901,20 @@ def main() -> int:
     rec = phase_kernel(data)
 
     it.LAUNCHES = rs.LAUNCHES = 0         # the main path starts here
-    dtab.LAUNCHES = asm.LAUNCHES = 0
+    dtab.LAUNCHES = asm.LAUNCHES = ml6.LAUNCHES = 0
     with counting_phases() as phases:
         items, comp = phase_compress(data)
     passes = phases["assemble"]
     launches_tail = (dtab.LAUNCHES, asm.LAUNCHES)
-    assert passes > 0 and launches_tail == (passes, passes), \
-        f"the L6 compress launched dyn_tables/assembly {launches_tail} in " \
-        f"{passes} passes"
-    log(f"dyn_tables launches on the L6 compress: {launches_tail[0]}; "
-        f"assembly launches: {launches_tail[1]} ({passes} device passes)")
+    launches_ml6 = ml6.LAUNCHES
+    assert passes > 0 and launches_tail == (passes, passes) \
+        and launches_ml6 == passes, \
+        f"the L6 compress launched match_l6 {launches_ml6} times, " \
+        f"dyn_tables/assembly {launches_tail} in {passes} passes"
+    log(f"match_l6 launches on the L6 compress: {launches_ml6}; dyn_tables "
+        f"launches: {launches_tail[0]}; assembly launches: "
+        f"{launches_tail[1]} ({passes} device passes)")
+    phase_compress_cpu(items, comp)
     comp_l6 = comp
     counts = route_counts()
     phase_decompress("L6 items", comp, items, [ITEM] * len(comp))
@@ -1899,6 +1999,11 @@ def main() -> int:
     rec_rs["launches"] = launches_rs
     log(f"phase 24 (the resolve kernel): "
         f"{time.perf_counter() - t_tail:.1f} s")
+    t_tail = time.perf_counter()
+    rec_ml6 = phase_match_kernel(items, card)
+    rec_ml6["launches"] = launches_ml6
+    log(f"phase 25 (the match kernel): "
+        f"{time.perf_counter() - t_tail:.1f} s")
     assert "jax" not in sys.modules, "the port imported jax"
     assert not any(m.split(".")[0] == "libdeflate_rsx_tpu"
                    for m in sys.modules), "the port imported the JAX package"
@@ -1906,7 +2011,7 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     print(json.dumps({"kernels": [rec, rec_v2, rec_st, rec_dt, rec_asm,
-                                  rec_rs]}))
+                                  rec_rs, rec_ml6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,10 +18,17 @@ of blocks:
                     row buffers (device).
 
 The JAX functions take one block and are vmapped; these take the batch
-dimension first. uint32 values are held in int64. The JAX package's
-multi-operand stable sorts become one stable `torch.sort` on a composed
-int64 key, with the carried operands gathered by the returned indices;
-its sorts on unique positions (inverse permutations) become scatters.
+dimension first. uint32 values are held in int64.
+
+analyze_block_l6's match finder is `ops/match_l6.find_matches_l6`: on
+the card a CUDA kernel (`csrc/match_l6.cu`, the window's sorts as radix
+sorts inside one thread block), on the CPU `find_matches_l6_plain`
+here, its plain version. In the plain version (as in find_matches_v2)
+the JAX package's multi-operand stable sorts become one stable
+`torch.sort` on a composed int64 key, with the carried operands gathered
+by the returned indices: five sorts (the base tier's word, the 8-byte
+grid prefix and the ladder's levels 16, 32 and 64); its sorts on unique
+positions (inverse permutations) become scatters.
 """
 
 from __future__ import annotations
@@ -88,25 +95,34 @@ def _shift(a: torch.Tensor, j: int) -> torch.Tensor:
     return torch.cat([torch.zeros_like(a[:, :j]), a[:, :-j]], dim=1)
 
 
-def find_matches_l6(data_padded: torch.Tensor, valid_len: torch.Tensor,
-                    hist_start: torch.Tensor, s: int, levels=L6_LEVELS,
-                    tier_k: int = L6_TIER_K, k: int = 4):
-    """(ml, dist) per position over [history | payload] windows.
-
-    data_padded (B, >= s + 68) uint8, valid_len and hist_start (B,).
-    Base tier: a stable sort on the 4-byte word with `k` predecessors,
-    exact to 16 bytes. Long matches: a prefix-doubling rank ladder on a
-    stride-2 grid, `tier_k` predecessors per level, exact to L + 8. A
-    covering decay scan spreads candidates to the positions they cover.
-    Candidates starting before hist_start are rejected."""
-    # the covering-decay scan packs (match end << 15 | nearness) into 32
-    # bits; match end can reach s + max(levels) + 8
+def check_l6_window(s: int, levels=L6_LEVELS) -> None:
+    """Raise ValueError unless find_matches_l6 takes windows of s bytes:
+    the covering-decay scan packs (match end << 15 | nearness) into 32
+    bits, and match end can reach s + max(levels) + 8; the ladder's grid
+    has stride L6_GRID."""
     slack = max(max(levels) + 8, 258)
     if s + slack >= (1 << 17):
         raise ValueError(
             f"find_matches_l6 window {s} too large: HIST + block_size"
             f" + {slack} must stay < {1 << 17} (use block_size <="
             f" {(1 << 17) - HIST - slack - 1})")
+    if s % L6_GRID:
+        raise ValueError(f"window {s} is not a multiple of {L6_GRID}")
+
+
+def find_matches_l6_plain(data_padded: torch.Tensor, valid_len: torch.Tensor,
+                          hist_start: torch.Tensor, s: int, levels=L6_LEVELS,
+                          tier_k: int = L6_TIER_K, k: int = 4):
+    """(ml, dist) per position over [history | payload] windows: the
+    plain version of the kernel behind ops/match_l6.find_matches_l6.
+
+    data_padded (B, >= s + 71) uint8, valid_len and hist_start (B,).
+    Base tier: a stable sort on the 4-byte word with `k` predecessors,
+    exact to 16 bytes. Long matches: a prefix-doubling rank ladder on a
+    stride-2 grid, `tier_k` predecessors per level, exact to L + 8. A
+    covering decay scan spreads candidates to the positions they cover.
+    Candidates starting before hist_start are rejected."""
+    check_l6_window(s, levels)
     dev = data_padded.device
     d = data_padded.to(torch.int64)
     pos = torch.arange(s, device=dev)
@@ -132,8 +148,6 @@ def find_matches_l6(data_padded: torch.Tensor, valid_len: torch.Tensor,
 
     # --- prefix-doubling rank ladder (stride-2 grid)
     gs_ = L6_GRID
-    if s % gs_:
-        raise ValueError(f"window {s} is not a multiple of {gs_}")
     m = s // gs_
     gidx = torch.arange(m, device=dev)
 
@@ -244,23 +258,30 @@ def analyze_block_l6(data_padded: torch.Tensor, valid_len: torch.Tensor,
 
     Returns payload-sliced (ml, dist, sel, lit) (B, block_size) and
     (ll_hist (B, 288), of_hist (B, 30)) uint16, saturated at 65535."""
+    from .match_l6 import find_matches_l6   # match_l6 imports this module
+
     s = HIST + block_size
-    dev = data_padded.device
     valid_len = valid_len.to(torch.int64)
     ml, dist = find_matches_l6(data_padded, valid_len, hist_start, s)
     ml = extend_runs(ml, dist, valid_len)
-    pos = torch.arange(s, device=dev)
-    # history region emits nothing (the previous block covered it)
-    ml = torch.where(pos >= HIST, ml, 0)
-    # one-position lazy demotion (the host greedy's lazy rule)
-    nxt = torch.cat([ml[:, 1:], torch.zeros_like(ml[:, :1])], dim=1)
-    ml = torch.where((nxt > ml) & (ml >= MIN_MATCH) & (nxt >= MIN_MATCH),
-                     0, ml)
-    ml, sel, lit = select_tokens(ml, dist, valid_len, wtile=WTILE_L6)
-
+    ml, sel, lit = select_tokens_l6(ml, dist, valid_len)
     ml, dist, sel, lit = (x[:, HIST:] for x in (ml, dist, sel, lit))
     byte = data_padded[:, HIST:HIST + block_size].to(torch.int64)
     return (ml, dist, sel, lit) + _histograms(byte, ml, dist, sel, lit)
+
+
+def select_tokens_l6(ml: torch.Tensor, dist: torch.Tensor,
+                     valid_len: torch.Tensor):
+    """analyze_block_l6's selection over the whole window: the history
+    region emits nothing (the previous block covered it), one-position
+    lazy demotion (the host greedy's lazy rule), then select_tokens.
+    Returns (ml, sel, lit) (B, s)."""
+    pos = torch.arange(ml.shape[1], device=ml.device)
+    ml = torch.where(pos >= HIST, ml, 0)
+    nxt = torch.cat([ml[:, 1:], torch.zeros_like(ml[:, :1])], dim=1)
+    ml = torch.where((nxt > ml) & (ml >= MIN_MATCH) & (nxt >= MIN_MATCH),
+                     0, ml)
+    return select_tokens(ml, dist, valid_len, wtile=WTILE_L6)
 
 
 def emit_pack(data_padded: torch.Tensor, ml: torch.Tensor,

@@ -1,0 +1,200 @@
+#!/usr/bin/env python3
+"""Where the L6 match kernel's time goes, on one CUDA card, and how it
+compares with other designs of it.
+
+Usage: python3 scripts/match_probe.py [--versus CSRC_DIR ...] [--out FILE]
+       (from the root of a checkout; about a minute)
+
+Builds the kernels, makes the Silesia-like corpus as `chip_smoke.py`
+does, and takes the L6 pass's windows of its 1 MiB items (259 windows of
+98,304 positions: the main path's shape). On those it holds the kernel
+(`ops/match_l6.find_matches_l6`) to its plain version on the card,
+times both by CUDA events beside the byte bound, and splits the
+kernel's time into its stages: the kernel's C entry
+`ldrsx_match_l6_stamped` has thread 0 of block 0 write the global
+nanosecond timer at each stage end of its first window (STAGES), and the
+stages of the mean of REPS calls are printed in microseconds.
+
+With --versus, the match kernel of other `csrc` directories (a `git
+archive` of the parent commit, say: `git archive HEAD
+libdeflate_rsx_tpu_torch/csrc | tar -x -C build/parent`) is compiled
+with the tree's flags into `build/versus_match/<k>/`, called through its
+own `ldrsx_match_l6`, held equal to the tree's kernel and timed in turns
+with it (each versus, tree, tree, each versus in reverse), with its
+stages where its source has the stamped entry. Every line names the card
+and is copied to FILE when given.
+"""
+
+import argparse
+import contextlib
+import ctypes
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+
+import chip_smoke as cs  # noqa: E402
+
+REPS = 10
+#: the kernel's stages, in the order of its stamps 1..12 (stamp 0 is the
+#: window's start)
+STAGES = ("load", "base sort", "base sweep", "8-byte sort", "8-byte sweep",
+          "L16 sort", "L16 sweep", "L32 sort", "L32 sweep", "L64 sort",
+          "L64 sweep", "decay")
+
+
+def bind(lib):
+    """ctypes signatures of a match_l6 library; whether it has the
+    stamped entry."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ldrsx_match_l6_scratch.argtypes = [i]
+    lib.ldrsx_match_l6_scratch.restype = ctypes.c_longlong
+    lib.ldrsx_match_l6.argtypes = [p, i, i, i, p, p, p, i, p, p, p]
+    lib.ldrsx_match_l6.restype = i
+    try:
+        fn = lib.ldrsx_match_l6_stamped
+    except AttributeError:
+        return False
+    fn.argtypes = [p, i, i, i, p, p, p, i, p, p, p, p]
+    fn.restype = i
+    return True
+
+
+def caller(lib, stamped: bool):
+    """find_matches_l6-like callable through a library's C entry; with
+    stamps= (a CUDA int64 tensor of len(STAGES) + 1) the stamped entry."""
+    import torch
+
+    def call(rows, valid, hist, s, stamps=None):
+        b = rows.shape[0]
+        dev = rows.device
+        ml = torch.empty((b, s), dtype=torch.int64, device=dev)
+        dist = torch.empty((b, s), dtype=torch.int64, device=dev)
+        blocks = min(b, torch.cuda.get_device_properties(dev)
+                     .multi_processor_count)
+        scratch = torch.empty(blocks * lib.ldrsx_match_l6_scratch(s),
+                              dtype=torch.int64, device=dev)
+        valid32, hist32 = valid.to(torch.int32), hist.to(torch.int32)
+        args = [rows.data_ptr(), b, rows.shape[1], s, valid32.data_ptr(),
+                hist32.data_ptr(), scratch.data_ptr(), blocks,
+                ml.data_ptr(), dist.data_ptr()]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if stamps is not None and stamped:
+            rc = lib.ldrsx_match_l6_stamped(*args, stamps.data_ptr(), stream)
+        else:
+            rc = lib.ldrsx_match_l6(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"match_l6 failed: CUDA error {rc}")
+        return ml, dist
+    return call
+
+
+def build_versus(dirs: list[str]) -> list[dict]:
+    """For each csrc directory, its match_l6.cu compiled with the tree's
+    flags into build/versus_match/<k>/ (one nvcc each, all started
+    together): [{"label", "fn", "stamped"}]."""
+    from libdeflate_rsx_tpu_torch.ops import _build
+    jobs = []
+    for k, csrc in enumerate(dirs):
+        out = os.path.join(ROOT, "build", "versus_match", str(k))
+        os.makedirs(out, exist_ok=True)
+        so = os.path.join(out, "match_l6.so")
+        jobs.append((k, csrc, so, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", so,
+             os.path.join(csrc, "match_l6.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    found = []
+    for k, csrc, so, p in jobs:
+        _, err = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {so}:\n{err}")
+        lib = ctypes.CDLL(so)
+        stamped = bind(lib)
+        found.append({"label": f"versus {k} ({csrc})",
+                      "fn": caller(lib, stamped), "stamped": stamped})
+    return found
+
+
+def stages(fn, args) -> str:
+    """The stages of fn's first window, mean of REPS calls, in µs."""
+    import torch
+    stamps = torch.zeros((REPS, len(STAGES) + 1), dtype=torch.int64,
+                         device="cuda")
+    for r in range(REPS):
+        fn(*args, stamps=stamps[r])
+    torch.cuda.synchronize()
+    us = (stamps[:, 1:] - stamps[:, :-1]).double().mean(0).cpu() / 1e3
+    return ", ".join(f"{name} {t:.1f}" for name, t in zip(STAGES, us)) \
+        + f"; window {float(us.sum()):.1f} us"
+
+
+def probe(say, versus_dirs) -> int:
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import _build
+    from libdeflate_rsx_tpu_torch.ops.encode_dynamic import \
+        find_matches_l6_plain
+
+    if not torch.cuda.is_available():
+        print("match_probe: no CUDA device", file=sys.stderr)
+        return 1
+    card = cs.phase_card()
+    cs.phase_build()
+    lib = _build.load("match_l6")
+    bind(lib)
+    tree = caller(lib, True)
+    versus = build_versus(versus_dirs)
+    data = cs.corpus()
+    items = [data[i:i + cs.ITEM] for i in range(0, len(data), cs.ITEM)]
+    rows, valid, hist, s = cs.l6_windows_of(items, cs.SLICE)
+    args = (rows, valid, hist, s)
+    cs.match_vs_plain(*args, "the corpus windows")
+    mine = tree(*args)
+    runs = {"tree": lambda: tree(*args)}
+    for v in versus:
+        got = v["fn"](*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(mine, got)), \
+            f"tree != {v['label']}"
+        runs[v["label"]] = (lambda fn: lambda: fn(*args))(v["fn"])
+    others = [k for k in runs if k != "tree"]
+    t = {k: [] for k in runs}
+    for k in others + ["tree", "tree"] + others[::-1]:
+        t[k].append(cs.time_cuda(runs[k], REPS))
+    plain = cs.time_cuda(lambda: find_matches_l6_plain(*args), 3)
+    b = rows.shape[0]
+    nbytes = rows.numel() + 8 * b + 16 * b * s
+    say(f"match_l6 on the {b} L6 windows of the corpus (s = {s}): "
+        + "; ".join(f"{k} " + " / ".join(f"{x:.3f}" for x in v)
+                    for k, v in t.items())
+        + f" ms per call (CUDA events, {REPS} calls each, in turns); plain "
+        f"version {plain:.3f} ms on the card; bound "
+        f"{nbytes / cs.HBM_BYTES_PER_MS:.6f} ms ({nbytes} bytes) [{card}]")
+    say(f"  tree stages: {stages(tree, args)}")
+    for v in versus:
+        if v["stamped"]:
+            say(f"  {v['label']} stages: {stages(v['fn'], args)}")
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--versus", nargs="*", default=[],
+                    help="other csrc directories to time against")
+    ap.add_argument("--out", help="also write every line to this file")
+    args = ap.parse_args()
+    with contextlib.ExitStack() as stack:
+        out = stack.enter_context(open(args.out, "w")) if args.out else None
+
+        def say(msg: str) -> None:
+            print(msg, flush=True)
+            if out is not None:
+                print(msg, file=out, flush=True)
+
+        return probe(say, args.versus)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

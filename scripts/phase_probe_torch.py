@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Phase breakdown of the PyTorch port's main path on one CUDA card.
 
-Usage: python3 scripts/phase_probe_torch.py [--out FILE]
+Usage: python3 scripts/phase_probe_torch.py [--out FILE] [--analyze-only]
 
 Times, with the card synchronised around each phase: BatchCompressor
 cold and warm; the encode phases of a BatchCompressor run at levels 6
@@ -15,7 +15,12 @@ phase but split, d2h and join is device work; the
 pass-1 kernel, and the resolve kernel beside its plain version on the
 card, at the main path's shapes (CUDA events); the plain pass 1 on the 256-slice decode set (host clock);
 BatchDecompressor on both decode sets; and the device busy share of one
-decompress and one compress from torch.profiler. Each line is printed,
+decompress and one compress from torch.profiler. First, the L6 analyze
+step split into its parts on the L6 pass's 259 windows (CUDA events, each
+part alone): the match finder (the kernel, and its plain version on the
+card), extend_runs, select_tokens_l6 (lazy demotion and selection) and
+the histograms, and analyze_block_l6 whole with each finder; with
+--analyze-only, only that. Each line is printed,
 and copied to FILE when given. Needs one CUDA card; the corpus and the
 card and build phases are chip_smoke.py's.
 """
@@ -71,6 +76,50 @@ def encode_phases(bc, items, say):
         + " ".join(f"{k} {v:.1f}" for k, v in ms.items()) + " ms")
 
 
+def analyze_split(items, say, reps: int = 5):
+    """Device ms of analyze_block_l6 and of each of its parts on the L6
+    pass's windows of the items, each part alone on its own inputs (CUDA
+    events, the mean of reps calls): first with the match finder's plain
+    version on the card, then with its kernel."""
+    import torch
+
+    import chip_smoke as cs
+    from libdeflate_rsx_tpu_torch.ops import encode_dynamic as ed
+    from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+    from libdeflate_rsx_tpu_torch.ops.encode_v2 import extend_runs
+
+    rows, valid, hist, s = cs.l6_windows_of(items, BLOCK)
+    valid = valid.long()
+    kernel = ml6.find_matches_l6
+    for name, finder in (("plain", ed.find_matches_l6_plain),
+                         ("kernel", kernel)):
+        ms = {"find_matches_l6": cs.time_cuda(
+            lambda: finder(rows, valid, hist, s), reps)}
+        ml, dist = finder(rows, valid, hist, s)
+        ms["extend_runs"] = cs.time_cuda(
+            lambda: extend_runs(ml, dist, valid), reps)
+        ext = extend_runs(ml, dist, valid)
+        ms["select_tokens_l6"] = cs.time_cuda(
+            lambda: ed.select_tokens_l6(ext, dist, valid), reps)
+        sel_ml, sel, lit = (x[:, ed.HIST:] for x in
+                            ed.select_tokens_l6(ext, dist, valid))
+        pay = dist[:, ed.HIST:]
+        byte = rows[:, ed.HIST:s].to(torch.int64)
+        ms["histograms"] = cs.time_cuda(
+            lambda: ed._histograms(byte, sel_ml, pay, sel, lit), reps)
+        ml6.find_matches_l6 = finder      # analyze_block_l6 takes it
+        try:
+            whole = cs.time_cuda(
+                lambda: ed.analyze_block_l6(rows, valid, hist, BLOCK), reps)
+        finally:
+            ml6.find_matches_l6 = kernel
+        say(f"analyze split, {name} match finder ({rows.shape[0]} windows "
+            f"of {s} positions; CUDA events, {reps} calls each): "
+            + " ".join(f"{k} {v:.3f}" for k, v in ms.items())
+            + f" (sum {sum(ms.values()):.3f}); analyze_block_l6 {whole:.3f} "
+              f"ms")
+
+
 def busy_share(name, fn, say):
     """Device busy share of fn(): the self time of the records on the
     device's timeline (kernels, copies, sets) over the wall time. The
@@ -99,6 +148,8 @@ def busy_share(name, fn, say):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every line to this file")
+    ap.add_argument("--analyze-only", action="store_true",
+                    help="only the L6 analyze split")
     args = ap.parse_args()
     with contextlib.ExitStack() as stack:
         out = stack.enter_context(open(args.out, "w")) if args.out else None
@@ -108,10 +159,10 @@ def main() -> int:
             if out is not None:
                 print(msg, file=out, flush=True)
 
-        return probe(say)
+        return probe(say, args.analyze_only)
 
 
-def probe(say) -> int:
+def probe(say, analyze_only: bool = False) -> int:
     sys.path.insert(0, ROOT)
     import torch
 
@@ -128,6 +179,9 @@ def probe(say) -> int:
     cs.phase_build()
     data = cs.corpus()
     items = [data[i:i + cs.ITEM] for i in range(0, len(data), cs.ITEM)]
+    analyze_split(items, say)
+    if analyze_only:
+        return 0
 
     bc = BatchCompressor(level=6, use_device=True, device="cuda")
     for label in ("cold", "warm", "warm"):

@@ -531,3 +531,69 @@ RESOLVE_CASES = _resolve_builders()
 def resolve_cases():
     """[(label, columns, out_cap)] of every hand-built case above."""
     return [(label, *build()) for label, build in RESOLVE_CASES.items()]
+
+
+# --------------------------------------------------------- L6 match windows
+L6_HIST = 32768         # the L6 tier's history prefix (bytes)
+L6_ROW_PAD = 266        # bytes past a window in its row (BLOCK_PAD)
+
+
+def l6_windows(block: int = 16384, seed: int = 11):
+    """Seeded [history | payload] windows of HIST + block bytes that hit
+    the L6 match finder's traps: (labels, rows (B, s + L6_ROW_PAD) uint8,
+    valid (B,) int32, hist_start (B,) int32, s). The row bytes past
+    `valid` are zero, as the encode flow pads them."""
+    import numpy as np
+
+    s = L6_HIST + block
+    rng = np.random.default_rng(seed)
+    text = np.frombuffer(make_corpus("text", s, seed=seed), np.uint8)
+    out = []
+
+    def add(label, body, valid=s, hist_start=0):
+        row = np.zeros(s + L6_ROW_PAD, np.uint8)
+        row[:valid] = body[:valid]
+        out.append((label, row, valid, hist_start))
+
+    add("text", text)
+    # the smallest word of the window (1, 0, 0, 0) six times: the first
+    # positions of the sorted order lose candidates (the rank rule)
+    small = rng.integers(16, 256, s, dtype=np.uint8)
+    tok = np.concatenate([[1, 0, 0, 0], rng.integers(16, 256, 8)])
+    for p in (20000, 26000, 31000, 35000, 39000, 44000):
+        small[p:p + 12] = tok
+    add("smallest word 6 times", small)
+    add("hist_start HIST", small, hist_start=L6_HIST)
+    add("hist_start 16384", small, hist_start=16384)
+    add("zeros", np.zeros(s, np.uint8))
+    add("valid_len < s", text, valid=40000)
+    far = rng.integers(0, 256, s, dtype=np.uint8)
+    for d, at in ((32767, 33000), (32768, 40000), (32769, 45000)):
+        far[at:at + 40] = far[at - d:at - d + 40]
+    add("distances 32767-32769", far)
+    # a 400-byte repeat (the decay spreads it), a run of a 24-byte period
+    # (equal lengths from the base tier and the ladder) and a copy of it
+    spread = rng.integers(0, 256, s, dtype=np.uint8)
+    spread[20000:20400] = spread[15000:15400]
+    spread[30000:31000] = np.resize(rng.integers(0, 256, 24), 1000)
+    spread[41000:41130] = spread[30003:30133]
+    add("long match and ties", spread)
+    # matches that run into the window's tail and the zero padding
+    tail = rng.integers(0, 256, s, dtype=np.uint8)
+    tail[s - 150:] = tail[s - 9000:s - 8850]
+    tail[s - 300:s - 200] = 0
+    tail[s - 60:] = 0
+    add("tail and padding", tail)
+    zero_runs = text.copy()
+    for p in (9000, 23000, 47000):
+        zero_runs[p:p + 6] = 0
+    add("three 6-byte zero runs", zero_runs)
+    add("periodic 7", np.frombuffer(make_corpus("periodic:7", s, seed=2),
+                                    np.uint8))
+    first = np.zeros(s, np.uint8)
+    first[L6_HIST:] = text[:block]
+    add("first block", first, hist_start=L6_HIST)
+    labels = [o[0] for o in out]
+    return (labels, np.stack([o[1] for o in out]),
+            np.array([o[2] for o in out], np.int32),
+            np.array([o[3] for o in out], np.int32), s)

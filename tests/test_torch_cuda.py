@@ -1,5 +1,5 @@
 """The port on a CUDA card: the pass-1, inflate_v2, inflate_static,
-dyn_tables, assembly and resolve kernels against their plain PyTorch
+dyn_tables, assembly, resolve and match_l6 kernels against their plain PyTorch
 versions on the card, the slice through the kernels, the level 0-6 compress tiers
 (card bytes equal to CPU bytes, decoded through the kernels) and the
 device checksums under TF32 and bf16 matmul precision. Every test here needs a card and skips
@@ -17,8 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from _port_corpus import (RESOLVE_CASES, edge_cases, edge_rows, make_corpus,
-                          mutated_streams)
+from _port_corpus import (RESOLVE_CASES, edge_cases, edge_rows, l6_windows,
+                          make_corpus, mutated_streams)
 
 pytestmark = pytest.mark.cuda
 
@@ -452,13 +452,14 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
                                                         monkeypatch):
     """BatchCompressor at levels 1, 4 and 6 on the card: the CPU's bytes,
     with one assembly launch a pass and, at levels 4 and 6, one table
-    launch a pass; what the flow copies off the card is the joined
+    launch a pass, at level 6 one match_l6 launch a pass; what the flow copies off the card is the joined
     streams (1-D uint8) and the blocks' byte counts and sizes ((2, B)
     int64), no histogram, table or row buffer."""
     from libdeflate_rsx_tpu_torch import BatchCompressor
     from libdeflate_rsx_tpu_torch.models import greedy_static as gs
     from libdeflate_rsx_tpu_torch.ops import assemble as asm
     from libdeflate_rsx_tpu_torch.ops import dyn_tables as dt
+    from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
 
     phases = []
     monkeypatch.setattr(gs, "PHASE_END", phases.append)
@@ -471,7 +472,7 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
                 copied.append((tuple(self.shape), self.dtype))
             return _orig(self, *a, **k)
         monkeypatch.setattr(torch.Tensor, name, spy)
-    tables, places = dt.LAUNCHES, asm.LAUNCHES
+    tables, places, matches = dt.LAUNCHES, asm.LAUNCHES, ml6.LAUNCHES
     gpu = BatchCompressor(level=level, use_device=True,
                           device=card).compress_batch(TIER_DATAS)
     monkeypatch.undo()
@@ -482,6 +483,7 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
     passes = phases.count("assemble")
     assert passes >= 1 and asm.LAUNCHES == places + passes
     assert dt.LAUNCHES == tables + (passes if level >= 4 else 0)
+    assert ml6.LAUNCHES == matches + (passes if level >= 6 else 0)
     assert phases.count("tables") == (passes if level >= 4 else 0)
     cpu = BatchCompressor(level=level, use_device=True,
                           device="cpu").compress_batch(TIER_DATAS)
@@ -561,3 +563,74 @@ def test_two_pass_decode_goes_through_the_resolve_kernel(card):
     assert bd.decompress_batch(streams, [len(d) for d in datas]) == datas
     assert not bd.fallbacks
     assert rs.LAUNCHES > before and it.LAUNCHES > pass1
+
+
+def _match_equal(rows, valid, hist, s):
+    """The match kernel (one launch) against its plain version on the
+    same card tensors: ml and dist equal, int64 (B, s)."""
+    from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+    from libdeflate_rsx_tpu_torch.ops.encode_dynamic import \
+        find_matches_l6_plain
+
+    before = ml6.LAUNCHES
+    got = ml6.find_matches_l6(rows, valid, hist, s)
+    assert ml6.LAUNCHES == before + (rows.shape[0] > 0)
+    want = find_matches_l6_plain(rows, valid, hist, s)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == torch.int64
+        assert g.shape == (rows.shape[0], s) and torch.equal(g, w)
+
+
+def test_match_l6_kernel_equals_plain_on_trap_windows(card):
+    """The trap windows of the CPU tests (tests/test_torch_match_l6.py):
+    the rank rule, hist_start, distances 32,767-32,769, the tail and
+    padding, ties, the decay, a first and a short block."""
+    _, rows, valid, hist, s = l6_windows()
+    _match_equal(*(torch.from_numpy(x).to(card) for x in (rows, valid,
+                                                          hist)), s)
+
+
+@pytest.mark.parametrize("block", [16384, 65536])
+@pytest.mark.parametrize("kind", ["text", "random", "zeros", "pattern",
+                                  "periodic:7"])
+def test_match_l6_kernel_equals_plain_on_flow_rows(card, kind, block):
+    """The encode flow's own rows (history prefixes, a first block with
+    hist_start = HIST, a short last block) at both block sizes."""
+    from libdeflate_rsx_tpu_torch.models import greedy_dynamic as gd
+
+    data = make_corpus(kind, 3 * block + 777, seed=len(kind))
+    arr, valid, hist, _, _ = gd.split_blocks_hist(data, block)
+    _match_equal(*(torch.from_numpy(x).to(card) for x in (arr, valid, hist)),
+                 gd.HIST + block)
+
+
+def test_match_l6_kernel_more_windows_than_sms(card):
+    """More windows than the card has SMs: each persistent block takes
+    several windows in turn."""
+    _, rows, valid, hist, s = l6_windows()
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    reps = -(-(sms + 5) // rows.shape[0])
+    rows = np.concatenate([np.roll(rows, 7 * k, axis=1) for k in range(reps)])
+    _match_equal(torch.from_numpy(rows).to(card),
+                 torch.from_numpy(np.tile(valid, reps)).to(card),
+                 torch.from_numpy(np.tile(hist, reps)).to(card), s)
+
+
+def test_match_l6_kernel_empty_batch_and_guards(card):
+    from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+
+    s = 49152
+    rows = torch.zeros((0, s + 266), dtype=torch.uint8, device=card)
+    none = torch.zeros(0, dtype=torch.int32, device=card)
+    _match_equal(rows, none, none, s)
+    one = torch.zeros(1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        ml6.find_matches_l6(rows[:0], none, none, (1 << 17) - 258)
+    with pytest.raises(ValueError):
+        ml6.find_matches_l6(torch.zeros((1, s + 266), dtype=torch.uint8,
+                                        device=card), one, one, s,
+                            levels=(16, 32))
+    with pytest.raises(ValueError):
+        ml6.find_matches_l6(torch.zeros((1, s + 8), dtype=torch.uint8,
+                                        device=card), one, one, s)
