@@ -1874,9 +1874,12 @@ def phase_match_kernel(items, card: str):
         lambda: find_matches_l6_plain(rows, valid, hist, s), KERNEL_REPS)
     b = rows.shape[0]
     nbytes = rows.numel() + 8 * b + 2 * 8 * b * s
+    size, smem, clusters = ml6.launch_shape(s)
     log(f"match_l6 on the {b} corpus windows: kernel {ms:.3f} ms, plain "
         f"version {plain_ms:.3f} ms on the card (CUDA events, "
-        f"{KERNEL_REPS} calls each) [{card}]")
+        f"{KERNEL_REPS} calls each); clusters of {size} blocks ({smem} B "
+        f"of shared memory each), {clusters} resident, "
+        f"{-(-b // clusters)} rounds [{card}]")
     return record("match_l6", "ops/encode_dynamic.py:194", max(errs), ms,
                   plain_ms, nbytes)
 

@@ -6,9 +6,9 @@ Counterpart of the JAX package's `ops/encode_dynamic.py`
 `encode_dynamic.find_matches_l6_plain`, for CPU tensors. Both give the
 same `(ml, dist)`, int64 `(B, s)`, for every position of every window
 (the plain version's docstring states the function; the kernel's source
-notes its design: an LSD radix sort per window inside one thread block
-for each of the plain version's five sorts, candidates read from
-neighbours in sorted order, and the covering decay by a block scan, in
+notes its design: a thread block cluster per window with the window's
+sorts in distributed shared memory, the ladder's levels refining only
+the groups of two or more, and the covering decay by a cluster scan, in
 one launch).
 """
 
@@ -26,7 +26,7 @@ from .encode_dynamic import (
     find_matches_l6_plain,
 )
 
-__all__ = ["find_matches_l6"]
+__all__ = ["find_matches_l6", "launch_shape"]
 
 #: kernel launches made by `find_matches_l6` (the plain version does not
 #: count)
@@ -37,11 +37,27 @@ def _lib():
     lib = _build.load("match_l6")
     if lib.ldrsx_match_l6.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ldrsx_match_l6_scratch.argtypes = [i]
-        lib.ldrsx_match_l6_scratch.restype = ctypes.c_longlong
-        lib.ldrsx_match_l6.argtypes = [p, i, i, i, p, p, p, i, p, p, p]
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.ldrsx_match_l6_shape.argtypes = [i, ip, ip, ip]
+        lib.ldrsx_match_l6_shape.restype = ctypes.c_int
+        lib.ldrsx_match_l6.argtypes = [p, i, i, i, p, p, p, p, p]
         lib.ldrsx_match_l6.restype = ctypes.c_int
     return lib
+
+
+def launch_shape(s: int, device=None) -> tuple[int, int, int]:
+    """(cluster size, dynamic shared memory of a block in bytes, clusters
+    resident at once) of the kernel at window s on the card; raises if
+    the kernel does not take such windows."""
+    cs, smem, clusters = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        rc = _lib().ldrsx_match_l6_shape(s, ctypes.byref(cs),
+                                         ctypes.byref(smem),
+                                         ctypes.byref(clusters))
+    if rc != 0:
+        raise RuntimeError(f"match_l6 kernel: no launch shape for windows "
+                           f"of {s} bytes (CUDA error {rc})")
+    return cs.value, smem.value, clusters.value
 
 
 def find_matches_l6(data_padded: torch.Tensor, valid_len: torch.Tensor,
@@ -79,15 +95,13 @@ def find_matches_l6(data_padded: torch.Tensor, valid_len: torch.Tensor,
     if b == 0:
         return ml, dist
     lib = _lib()
-    blocks = min(b, torch.cuda.get_device_properties(dev)
-                 .multi_processor_count)
-    scratch = torch.empty(blocks * lib.ldrsx_match_l6_scratch(s),
-                          dtype=torch.int64, device=dev)
+    # the C entry sizes the grid: as many clusters as the card holds at
+    # once, at most one per window
     with torch.cuda.device(dev):
         rc = lib.ldrsx_match_l6(
             data.data_ptr(), b, data.shape[1], s, valid.data_ptr(),
-            hist.data_ptr(), scratch.data_ptr(), blocks, ml.data_ptr(),
-            dist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            hist.data_ptr(), ml.data_ptr(), dist.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"match_l6 kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -13,15 +13,21 @@ times both by CUDA events beside the byte bound, and splits the
 kernel's time into its stages: the kernel's C entry
 `ldrsx_match_l6_stamped` has thread 0 of block 0 write the global
 nanosecond timer at each stage end of its first window (STAGES), and the
-stages of the mean of REPS calls are printed in microseconds.
+stages of the mean of REPS calls are printed in microseconds, with the
+sizes of that window's active lists (the grid positions whose group at
+the level below has two or more members) and the launch shape: the
+cluster size, the clusters resident at once and the rounds they take
+over the windows.
 
 With --versus, the match kernel of other `csrc` directories (a `git
 archive` of the parent commit, say: `git archive HEAD
 libdeflate_rsx_tpu_torch/csrc | tar -x -C build/parent`) is compiled
 with the tree's flags into `build/versus_match/<k>/`, called through its
-own `ldrsx_match_l6`, held equal to the tree's kernel and timed in turns
-with it (each versus, tree, tree, each versus in reverse), with its
-stages where its source has the stamped entry. Every line names the card
+own `ldrsx_match_l6` (the cluster kernel's entry, or the one-block-per-
+window kernel's of PR 11 with its global scratch), held equal to the
+tree's kernel and timed in turns with it (each versus, tree, tree, each
+versus in reverse), with its stages where its source has the stamped
+entry. Every line names the card
 and is copied to FILE when given.
 """
 
@@ -39,33 +45,48 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 import chip_smoke as cs  # noqa: E402
 
 REPS = 10
-#: the kernel's stages, in the order of its stamps 1..12 (stamp 0 is the
-#: window's start)
-STAGES = ("load", "base sort", "base sweep", "8-byte sort", "8-byte sweep",
-          "L16 sort", "L16 sweep", "L32 sort", "L32 sweep", "L64 sort",
-          "L64 sweep", "decay")
+#: the cluster kernel's stages, in the order of its stamps 1..13 (stamp 0
+#: is the window's start); after the stamps, the sizes of its active
+#: lists (LISTS)
+STAGES = ("load", "base sort", "base sweep", "even list", "8-byte sort",
+          "8-byte sweep", "L16 sort", "L16 sweep", "L32 sort", "L32 sweep",
+          "L64 sort", "L64 sweep", "decay")
+LISTS = ("8-byte", "L16", "L32", "L64")
+#: the stages of PR 11's one-block-per-window kernel
+BLOCK_STAGES = ("load", "base sort", "base sweep", "8-byte sort",
+                "8-byte sweep", "L16 sort", "L16 sweep", "L32 sort",
+                "L32 sweep", "L64 sort", "L64 sweep", "decay")
 
 
-def bind(lib):
-    """ctypes signatures of a match_l6 library; whether it has the
-    stamped entry."""
+def bind(lib) -> dict:
+    """ctypes signatures of a match_l6 library: {"cluster": whether it is
+    the cluster kernel (else PR 11's, with global scratch), "stamped":
+    whether it has the stamped entry, "stages": its stage names}."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ldrsx_match_l6_scratch.argtypes = [i]
-    lib.ldrsx_match_l6_scratch.restype = ctypes.c_longlong
-    lib.ldrsx_match_l6.argtypes = [p, i, i, i, p, p, p, i, p, p, p]
+    cluster = hasattr(lib, "ldrsx_match_l6_shape")
+    if cluster:
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.ldrsx_match_l6_shape.argtypes = [i, ip, ip, ip]
+        lib.ldrsx_match_l6_shape.restype = i
+        lib.ldrsx_match_l6.argtypes = [p, i, i, i, p, p, p, p, p]
+    else:
+        lib.ldrsx_match_l6_scratch.argtypes = [i]
+        lib.ldrsx_match_l6_scratch.restype = ctypes.c_longlong
+        lib.ldrsx_match_l6.argtypes = [p, i, i, i, p, p, p, i, p, p, p]
     lib.ldrsx_match_l6.restype = i
-    try:
+    stamped = hasattr(lib, "ldrsx_match_l6_stamped")
+    if stamped:
         fn = lib.ldrsx_match_l6_stamped
-    except AttributeError:
-        return False
-    fn.argtypes = [p, i, i, i, p, p, p, i, p, p, p, p]
-    fn.restype = i
-    return True
+        fn.argtypes = list(lib.ldrsx_match_l6.argtypes)[:-1] + [p, p]
+        fn.restype = i
+    return {"cluster": cluster, "stamped": stamped,
+            "stages": STAGES if cluster else BLOCK_STAGES}
 
 
-def caller(lib, stamped: bool):
+def caller(lib, kind: dict):
     """find_matches_l6-like callable through a library's C entry; with
-    stamps= (a CUDA int64 tensor of len(STAGES) + 1) the stamped entry."""
+    stamps= (a CUDA int64 tensor of len(stages) + 1, and len(LISTS) more
+    for the cluster kernel) the stamped entry."""
     import torch
 
     def call(rows, valid, hist, s, stamps=None):
@@ -73,16 +94,18 @@ def caller(lib, stamped: bool):
         dev = rows.device
         ml = torch.empty((b, s), dtype=torch.int64, device=dev)
         dist = torch.empty((b, s), dtype=torch.int64, device=dev)
-        blocks = min(b, torch.cuda.get_device_properties(dev)
-                     .multi_processor_count)
-        scratch = torch.empty(blocks * lib.ldrsx_match_l6_scratch(s),
-                              dtype=torch.int64, device=dev)
         valid32, hist32 = valid.to(torch.int32), hist.to(torch.int32)
         args = [rows.data_ptr(), b, rows.shape[1], s, valid32.data_ptr(),
-                hist32.data_ptr(), scratch.data_ptr(), blocks,
-                ml.data_ptr(), dist.data_ptr()]
+                hist32.data_ptr()]
+        if not kind["cluster"]:
+            blocks = min(b, torch.cuda.get_device_properties(dev)
+                         .multi_processor_count)
+            scratch = torch.empty(blocks * lib.ldrsx_match_l6_scratch(s),
+                                  dtype=torch.int64, device=dev)
+            args += [scratch.data_ptr(), blocks]
+        args += [ml.data_ptr(), dist.data_ptr()]
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if stamps is not None and stamped:
+        if stamps is not None and kind["stamped"]:
             rc = lib.ldrsx_match_l6_stamped(*args, stamps.data_ptr(), stream)
         else:
             rc = lib.ldrsx_match_l6(*args, stream)
@@ -112,23 +135,31 @@ def build_versus(dirs: list[str]) -> list[dict]:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {so}:\n{err}")
         lib = ctypes.CDLL(so)
-        stamped = bind(lib)
+        kind = bind(lib)
         found.append({"label": f"versus {k} ({csrc})",
-                      "fn": caller(lib, stamped), "stamped": stamped})
+                      "fn": caller(lib, kind), **kind})
     return found
 
 
-def stages(fn, args) -> str:
-    """The stages of fn's first window, mean of REPS calls, in µs."""
+def stages(fn, args, names, cluster: bool) -> str:
+    """The stages of fn's first window, mean of REPS calls, in µs; for
+    the cluster kernel, the window's active list sizes."""
     import torch
-    stamps = torch.zeros((REPS, len(STAGES) + 1), dtype=torch.int64,
-                         device="cuda")
+    stamps = torch.zeros((REPS, len(names) + 1 + len(LISTS)),
+                         dtype=torch.int64, device="cuda")
     for r in range(REPS):
         fn(*args, stamps=stamps[r])
     torch.cuda.synchronize()
-    us = (stamps[:, 1:] - stamps[:, :-1]).double().mean(0).cpu() / 1e3
-    return ", ".join(f"{name} {t:.1f}" for name, t in zip(STAGES, us)) \
+    t = stamps[:, :len(names) + 1]
+    us = (t[:, 1:] - t[:, :-1]).double().mean(0).cpu() / 1e3
+    line = ", ".join(f"{name} {x:.1f}" for name, x in zip(names, us)) \
         + f"; window {float(us.sum()):.1f} us"
+    if cluster:
+        sizes = stamps[0, len(names) + 1:].tolist()
+        line += "; active lists " + ", ".join(
+            f"{n} {v}" for n, v in zip(LISTS, sizes)) \
+            + f" of {args[3] // 2} grid positions"
+    return line
 
 
 def probe(say, versus_dirs) -> int:
@@ -143,8 +174,7 @@ def probe(say, versus_dirs) -> int:
     card = cs.phase_card()
     cs.phase_build()
     lib = _build.load("match_l6")
-    bind(lib)
-    tree = caller(lib, True)
+    tree = caller(lib, bind(lib))
     versus = build_versus(versus_dirs)
     data = cs.corpus()
     items = [data[i:i + cs.ITEM] for i in range(0, len(data), cs.ITEM)]
@@ -172,10 +202,16 @@ def probe(say, versus_dirs) -> int:
         + f" ms per call (CUDA events, {REPS} calls each, in turns); plain "
         f"version {plain:.3f} ms on the card; bound "
         f"{nbytes / cs.HBM_BYTES_PER_MS:.6f} ms ({nbytes} bytes) [{card}]")
-    say(f"  tree stages: {stages(tree, args)}")
+    from libdeflate_rsx_tpu_torch.ops.match_l6 import launch_shape
+    size, smem, clusters = launch_shape(s)
+    say(f"  tree launch: clusters of {size} blocks ({smem} B of shared "
+        f"memory each), {clusters} resident at once, "
+        f"{-(-b // clusters)} rounds over the {b} windows")
+    say(f"  tree stages: {stages(tree, args, STAGES, True)}")
     for v in versus:
         if v["stamped"]:
-            say(f"  {v['label']} stages: {stages(v['fn'], args)}")
+            say(f"  {v['label']} stages: "
+                f"{stages(v['fn'], args, v['stages'], v['cluster'])}")
     return 0
 
 

@@ -606,15 +606,38 @@ def test_match_l6_kernel_equals_plain_on_flow_rows(card, kind, block):
 
 
 def test_match_l6_kernel_more_windows_than_sms(card):
-    """More windows than the card has SMs: each persistent block takes
-    several windows in turn."""
+    """More windows than the card has SMs, and so than it holds clusters
+    at once: each persistent cluster takes several windows in turn."""
+    from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+
     _, rows, valid, hist, s = l6_windows()
     sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert ml6.launch_shape(s, card)[2] < sms
     reps = -(-(sms + 5) // rows.shape[0])
     rows = np.concatenate([np.roll(rows, 7 * k, axis=1) for k in range(reps)])
     _match_equal(torch.from_numpy(rows).to(card),
                  torch.from_numpy(np.tile(valid, reps)).to(card),
                  torch.from_numpy(np.tile(hist, reps)).to(card), s)
+
+
+def test_match_l6_kernel_launch_shape(card):
+    """The main path's windows (64 KiB blocks) take clusters of 8 blocks,
+    the largest blocks the L6 tier takes (98,000 bytes) clusters of 16,
+    and the card holds at least one cluster of either."""
+    from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+
+    size, smem, clusters = ml6.launch_shape(32768 + 65536, card)
+    assert size == 8 and 0 < smem <= 232448 and clusters >= 1
+    size, smem, clusters = ml6.launch_shape(32768 + 98000, card)
+    assert size == 16 and 0 < smem <= 232448 and clusters >= 1
+
+
+def test_match_l6_kernel_equals_plain_on_the_largest_windows(card):
+    """Windows of the largest L6 block (98,000 bytes), which take clusters
+    of 16 blocks: the trap windows at that width."""
+    _, rows, valid, hist, s = l6_windows(block=98000)
+    _match_equal(*(torch.from_numpy(x).to(card) for x in (rows, valid,
+                                                          hist)), s)
 
 
 def test_match_l6_kernel_empty_batch_and_guards(card):
