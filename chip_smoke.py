@@ -6,8 +6,9 @@ Usage: python3 chip_smoke.py      (from the root of a checkout; one card)
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
-2. build: the seven CUDA kernel sources (pass 1, inflate_v2,
-   inflate_static, dyn_tables, assemble_rows, resolve, match_l6), from
+2. build: the eight CUDA kernel sources (pass 1, inflate_v2,
+   inflate_static, dyn_tables, assemble_rows, resolve, match_l6,
+   select), from
    csrc/ with one nvcc each, all started together (build/kernels/);
 3. pass 1 (the segment route's kernels) against its plain PyTorch
    version, both on the card, at the 64 KiB out_cap: zlib streams of
@@ -20,7 +21,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. compress: BatchCompressor(level=6, use_device=True) over the corpus
    in 1 MiB items, every output checked with zlib; the match kernel, the
    table kernel and the assembly kernel must each have launched once a
-   device pass (their records' launches); the first N_CPU_ITEMS items
+   device pass (their records' launches), and so must the select
+   kernel (run extension, lazy demotion, selection and histograms);
+   the first N_CPU_ITEMS items
    again with device="cpu" (the match finder's plain version), equal
    bytes;
 5. decompress: BatchDecompressor(use_device=True, resolve="device") on
@@ -63,8 +66,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    use_device=True) over the corpus in 1 MiB items (64 KiB blocks),
    every output checked with zlib, ratio and wall per level (two runs);
    the first two items again with device="cpu", equal bytes; at L1 and
-   L4 the assembly kernel launched once a device pass, at L4 the table
-   kernel too;
+   L4 the assembly and select kernels launched once a device pass, at
+   L4 the table kernel too;
 14. their two-pass decode: BatchDecompressor(use_device=True,
    resolve="device") on the L1 and L4 items and on the level-0 streams
    of the first 256 64-KiB slices, byte-exact; every host fallback is
@@ -140,12 +143,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    ties, the decay, a first block, a short last block) in 16 KiB
    blocks: ml and dist equal; then timed on the 259 windows (the
    record) beside the plain version on the card; the bound counts the
-   window rows in and (ml, dist) out.
+   window rows in and (ml, dist) out;
+26. the select kernel (run extension, the L6 history mask and lazy
+   demotion, greedy selection, the histograms) against its plain
+   version on the card: the match kernel's (ml, dist) of the L6 pass's
+   259 windows, of zeros and random windows and of the trap windows;
+   the L4 pass's windows (find_matches_v2) at the L4 and L1 flags
+   (cells of 64, with and without histograms); the seeded edge arrays
+   of tests/_port_corpus.py select_cases at the three callers' flags:
+   ml, sel, lit, ll_hist and of_hist equal; then timed on the 259 L6
+   windows (the record) beside the plain version on the card; the
+   bound counts the payload's (ml, dist) and bytes in, (ml, sel, lit)
+   and the histograms out.
 
 Phases 13-21 drive the level 0-5 tiers, the checksums, the memory
 budget and the sharded paths, the port's modules with no kernel of
 their own; the kernels' launches there are logged and asserted, and
-their records stay those of phases 3-12 and 22-25.
+their records stay those of phases 3-12 and 22-26.
 Each kernel's record (ms, plain_ms, bound_ms) is taken on its path's
 own inputs, where every input and output byte is needed: the bound is
 those bytes over the card's memory rate. The last two lines are the
@@ -190,7 +204,7 @@ N_SMALL = (1, 7)        # small-batch path batch sizes
 N_STATIC = 128          # Z_FIXED slices through inflate_device_static
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM device memory, 3.35 TB/s
 KERNELS = ("inflate_tokens", "inflate_v2", "inflate_static", "dyn_tables",
-           "assemble_rows", "resolve", "match_l6")
+           "assemble_rows", "resolve", "match_l6", "select")
 TIER_LEVELS = (0, 1, 4)     # the stored, static and dynamic compress tiers
 N_CPU_ITEMS = 2             # items also compressed with device="cpu"
 BUDGET_OVER = 1.2           # phases 18, 20: one-pass need / card memory
@@ -854,12 +868,13 @@ def phase_compress_tiers(data: bytes):
     from libdeflate_rsx_tpu_torch import BatchCompressor
     from libdeflate_rsx_tpu_torch.ops import assemble as asm
     from libdeflate_rsx_tpu_torch.ops import dyn_tables as dtab
+    from libdeflate_rsx_tpu_torch.ops import select as sl
 
     items = [data[i:i + ITEM] for i in range(0, len(data), ITEM)]
     comp = {}
     for level in TIER_LEVELS:
         bc = BatchCompressor(level=level, use_device=True, device="cuda")
-        dtab.LAUNCHES = asm.LAUNCHES = 0      # this tier starts here
+        dtab.LAUNCHES = asm.LAUNCHES = sl.LAUNCHES = 0  # this tier starts here
         walls = []
         with counting_phases() as phases:
             for _ in range(2):
@@ -868,10 +883,10 @@ def phase_compress_tiers(data: bytes):
                 out = bc.compress_batch(items)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
-        launches = (dtab.LAUNCHES, asm.LAUNCHES)
+        launches = (dtab.LAUNCHES, asm.LAUNCHES, sl.LAUNCHES)
         passes = phases["assemble"]
         assert (passes > 0) == (level >= 1), (level, passes)
-        assert launches == (passes if level >= 4 else 0, passes), \
+        assert launches == (passes if level >= 4 else 0, passes, passes), \
             (level, launches, passes)
         for i, (it_, c) in enumerate(zip(items, out)):
             assert zlib.decompress(c, -15) == it_, f"L{level} item {i}"
@@ -885,8 +900,8 @@ def phase_compress_tiers(data: bytes):
             f"{len(data) / sum(map(len, out)):.4f}; wall {walls[0]:.3f} s, "
             f"again {walls[1]:.3f} s; the first {N_CPU_ITEMS} items on the "
             f"CPU equal ({cpu_s:.2f} s); dyn_tables launches {launches[0]}, "
-            f"assembly launches {launches[1]}, device passes {passes} (two "
-            f"runs)")
+            f"assembly launches {launches[1]}, select launches "
+            f"{launches[2]}, device passes {passes} (two runs)")
         comp[level] = out
     return items, comp
 
@@ -1884,6 +1899,88 @@ def phase_match_kernel(items, card: str):
                   plain_ms, nbytes)
 
 
+def select_vs_plain(ml, dist, valid, data, l6: bool, label: str) -> int:
+    """The select kernel and its plain version on the card on the same
+    inputs: every output equal. Returns the max abs err."""
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import select as sl
+
+    got = sl.select(ml, dist, valid, data, l6=l6)
+    want = sl.select_plain(ml, dist, valid, data, l6=l6)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    assert all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want)), \
+        f"select {label}: kernel != plain (max abs err {err})"
+    return err
+
+
+def phase_select_kernel(items, card: str):
+    """Phase 26: the select kernel against its plain version on the card,
+    on the match kernel's (ml, dist) of the L6 pass's windows, of zeros
+    and random windows and of the trap windows, on the L4 pass's windows
+    at the L4 and L1 flags, and on the seeded edge arrays at the three
+    callers' flags; then its record, timed on the L6 pass's windows.
+    Returns the record."""
+    import numpy as np
+    import torch
+    from _port_corpus import l6_windows, select_cases
+    from libdeflate_rsx_tpu_torch.models import greedy_dynamic as gd
+    from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+    from libdeflate_rsx_tpu_torch.ops import select as sl
+    from libdeflate_rsx_tpu_torch.ops.encode_v2 import find_matches_v2
+
+    def l6_inputs(rows, valid, hist, s):
+        return (*ml6.find_matches_l6(rows, valid, hist, s), valid.long(),
+                rows)
+
+    rows, valid, hist, s = l6_windows_of(items, SLICE)
+    main = l6_inputs(rows, valid, hist, s)
+    errs = [select_vs_plain(*main, True, "the corpus windows")]
+    rng = np.random.default_rng(26)
+    edge = [bytes(2 * SLICE), rng.integers(0, 256, 2 * SLICE - 999,
+                                           dtype=np.uint8).tobytes()]
+    errs.append(select_vs_plain(*l6_inputs(*l6_windows_of(edge, SLICE)),
+                                True, "zeros and random windows"))
+    labels, t_rows, t_valid, t_hist, t_s = l6_windows()
+    errs.append(select_vs_plain(*l6_inputs(
+        *(torch.from_numpy(x).cuda() for x in (t_rows, t_valid, t_hist)),
+        t_s), True, "the trap windows"))
+    _, arr, valid4, _, _ = gd.split_many(items, SLICE, False)
+    arr, valid4 = torch.from_numpy(arr).cuda(), \
+        torch.from_numpy(valid4).cuda().long()
+    ml4, dist4 = find_matches_v2(arr, valid4, SLICE)
+    errs.append(select_vs_plain(ml4, dist4, valid4, arr, False,
+                                "the L4 windows"))
+    errs.append(select_vs_plain(ml4, dist4, valid4, None, False,
+                                "the L4 windows at the L1 flags"))
+    e_labels, e_ml, e_dist, e_valid, e_data = (
+        x if isinstance(x, list) else torch.from_numpy(x).cuda()
+        for x in select_cases())
+    for l6, data in ((True, e_data), (False, e_data), (False, None)):
+        errs.append(select_vs_plain(e_ml, e_dist, e_valid, data, l6,
+                                    "the edge arrays"))
+    log(f"select vs plain: equal on the {rows.shape[0]} corpus windows "
+        f"(s = {s}), 2 zeros and 2 random windows of that width, "
+        f"{len(labels)} trap windows (s = {t_s}), the {arr.shape[0]} L4 "
+        f"windows at the L4 and L1 flags and {len(e_labels)} edge arrays "
+        f"at the three flags ({', '.join(e_labels)}), max abs err "
+        f"{max(errs)}")
+    ms = time_cuda(lambda: sl.select(*main, l6=True), KERNEL_REPS)
+    plain_ms = time_cuda(lambda: sl.select_plain(*main, l6=True),
+                         KERNEL_REPS)
+    b, n = rows.shape[0], s - gd.HIST
+    # (ml, dist) and the byte in, ml, sel and lit out per payload
+    # position; valid_len in and the two histograms out per window
+    nbytes = b * n * (8 + 8 + 1 + 8 + 1 + 1) + b * (8 + 2 * (288 + 30))
+    log(f"select on the {b} corpus windows: kernel {ms:.3f} ms, plain "
+        f"version {plain_ms:.3f} ms on the card (CUDA events, "
+        f"{KERNEL_REPS} calls each) [{card}]")
+    return record("select", "ops/encode_v2.py:168", max(errs), ms,
+                  plain_ms, nbytes)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1897,6 +1994,7 @@ def main() -> int:
     from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
     from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
     from libdeflate_rsx_tpu_torch.ops import resolve as rs
+    from libdeflate_rsx_tpu_torch.ops import select as sl
 
     card = phase_card()
     phase_build()
@@ -1904,19 +2002,21 @@ def main() -> int:
     rec = phase_kernel(data)
 
     it.LAUNCHES = rs.LAUNCHES = 0         # the main path starts here
-    dtab.LAUNCHES = asm.LAUNCHES = ml6.LAUNCHES = 0
+    dtab.LAUNCHES = asm.LAUNCHES = ml6.LAUNCHES = sl.LAUNCHES = 0
     with counting_phases() as phases:
         items, comp = phase_compress(data)
     passes = phases["assemble"]
     launches_tail = (dtab.LAUNCHES, asm.LAUNCHES)
-    launches_ml6 = ml6.LAUNCHES
+    launches_ml6, launches_sl = ml6.LAUNCHES, sl.LAUNCHES
     assert passes > 0 and launches_tail == (passes, passes) \
-        and launches_ml6 == passes, \
+        and launches_ml6 == launches_sl == passes, \
         f"the L6 compress launched match_l6 {launches_ml6} times, " \
-        f"dyn_tables/assembly {launches_tail} in {passes} passes"
-    log(f"match_l6 launches on the L6 compress: {launches_ml6}; dyn_tables "
-        f"launches: {launches_tail[0]}; assembly launches: "
-        f"{launches_tail[1]} ({passes} device passes)")
+        f"select {launches_sl} times, dyn_tables/assembly " \
+        f"{launches_tail} in {passes} passes"
+    log(f"match_l6 launches on the L6 compress: {launches_ml6}; select "
+        f"launches: {launches_sl}; dyn_tables launches: "
+        f"{launches_tail[0]}; assembly launches: {launches_tail[1]} "
+        f"({passes} device passes)")
     phase_compress_cpu(items, comp)
     comp_l6 = comp
     counts = route_counts()
@@ -2007,6 +2107,11 @@ def main() -> int:
     rec_ml6["launches"] = launches_ml6
     log(f"phase 25 (the match kernel): "
         f"{time.perf_counter() - t_tail:.1f} s")
+    t_tail = time.perf_counter()
+    rec_sl = phase_select_kernel(items, card)
+    rec_sl["launches"] = launches_sl
+    log(f"phase 26 (the select kernel): "
+        f"{time.perf_counter() - t_tail:.1f} s")
     assert "jax" not in sys.modules, "the port imported jax"
     assert not any(m.split(".")[0] == "libdeflate_rsx_tpu"
                    for m in sys.modules), "the port imported the JAX package"
@@ -2014,7 +2119,7 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     print(json.dumps({"kernels": [rec, rec_v2, rec_st, rec_dt, rec_asm,
-                                  rec_rs, rec_ml6]}))
+                                  rec_rs, rec_ml6, rec_sl]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

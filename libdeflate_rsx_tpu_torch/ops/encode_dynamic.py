@@ -20,10 +20,17 @@ of blocks:
 The JAX functions take one block and are vmapped; these take the batch
 dimension first. uint32 values are held in int64.
 
-analyze_block_l6's match finder is `ops/match_l6.find_matches_l6`: on
-the card a CUDA kernel (`csrc/match_l6.cu`, the window's sorts as radix
-sorts inside one thread block), on the CPU `find_matches_l6_plain`
-here, its plain version. In the plain version (as in find_matches_v2)
+On the card, analyze_block_l6 runs two kernels: the match finder
+(`ops/match_l6.find_matches_l6`, `csrc/match_l6.cu`: a thread block
+cluster per window, the window's sorts in its distributed shared
+memory), then the selection (`ops/select.select`, `csrc/select.cu`: run
+extension, the history mask, lazy demotion, greedy selection and the
+histograms, a thread block per window); analyze_block and the level-1
+encoder (encode_v2.encode_rows_static) run the selection kernel after
+find_matches_v2. On the CPU the same functions run the plain versions:
+`find_matches_l6_plain` here and `select.select_plain` (extend_runs,
+select_tokens_l6 or select_tokens, _histograms). In the plain match
+finder (as in find_matches_v2)
 the JAX package's multi-operand stable sorts become one stable
 `torch.sort` on a composed int64 key, with the carried operands gathered
 by the returned indices: five sorts (the base tier's word, the 8-byte
@@ -42,7 +49,6 @@ from .encode_v2 import (
     _prefix_bytes,
     _unsort,
     _words_at,
-    extend_runs,
     find_matches_v2,
     pack_rows,
     select_tokens,
@@ -240,13 +246,11 @@ def analyze_block(data_padded: torch.Tensor, valid_len: torch.Tensor,
 
     Returns (ml, dist, sel, lit) (B, block_size), the inputs of
     emit_pack, and (ll_hist (B, 288), of_hist (B, 30)) uint16."""
-    s = block_size
+    from .select import select       # select imports this module
+
     valid_len = valid_len.to(torch.int64)
-    ml, dist = find_matches_v2(data_padded, valid_len, s)
-    ml = extend_runs(ml, dist, valid_len)
-    ml, sel, lit = select_tokens(ml, dist, valid_len)
-    byte = data_padded[:, :s].to(torch.int64)
-    return (ml, dist, sel, lit) + _histograms(byte, ml, dist, sel, lit)
+    ml, dist = find_matches_v2(data_padded, valid_len, block_size)
+    return select(ml, dist, valid_len, data_padded)
 
 
 def analyze_block_l6(data_padded: torch.Tensor, valid_len: torch.Tensor,
@@ -258,24 +262,22 @@ def analyze_block_l6(data_padded: torch.Tensor, valid_len: torch.Tensor,
 
     Returns payload-sliced (ml, dist, sel, lit) (B, block_size) and
     (ll_hist (B, 288), of_hist (B, 30)) uint16, saturated at 65535."""
-    from .match_l6 import find_matches_l6   # match_l6 imports this module
+    from .match_l6 import find_matches_l6   # both import this module
+    from .select import select
 
     s = HIST + block_size
     valid_len = valid_len.to(torch.int64)
     ml, dist = find_matches_l6(data_padded, valid_len, hist_start, s)
-    ml = extend_runs(ml, dist, valid_len)
-    ml, sel, lit = select_tokens_l6(ml, dist, valid_len)
-    ml, dist, sel, lit = (x[:, HIST:] for x in (ml, dist, sel, lit))
-    byte = data_padded[:, HIST:HIST + block_size].to(torch.int64)
-    return (ml, dist, sel, lit) + _histograms(byte, ml, dist, sel, lit)
+    return select(ml, dist, valid_len, data_padded, l6=True)
 
 
 def select_tokens_l6(ml: torch.Tensor, dist: torch.Tensor,
                      valid_len: torch.Tensor):
-    """analyze_block_l6's selection over the whole window: the history
-    region emits nothing (the previous block covered it), one-position
-    lazy demotion (the host greedy's lazy rule), then select_tokens.
-    Returns (ml, sel, lit) (B, s)."""
+    """The L6 selection over the whole window, in plain PyTorch (a part
+    of select.select_plain): the history region emits nothing (the
+    previous block covered it), one-position lazy demotion (the host
+    greedy's lazy rule), then select_tokens. Returns (ml, sel, lit)
+    (B, s)."""
     pos = torch.arange(ml.shape[1], device=ml.device)
     ml = torch.where(pos >= HIST, ml, 0)
     nxt = torch.cat([ml[:, 1:], torch.zeros_like(ml[:, :1])], dim=1)

@@ -252,11 +252,12 @@ def encode_rows_static(data_padded: torch.Tensor, valid_len: torch.Tensor,
     (B,). Returns (rows (B, R, ROW_OUT + 1) uint8 globally bit-aligned
     row buffers, byte_off (B, R), rowbits (B, R), total_bits (B,),
     nbytes (B,))."""
+    from .select import select       # select imports this module
+
     s = block_size
     valid_len = valid_len.to(torch.int64)
     ml, dist = find_matches_v2(data_padded, valid_len, s)
-    ml = extend_runs(ml, dist, valid_len)
-    ml, sel, lit = select_tokens(ml, dist, valid_len)
+    ml, _, sel, lit = select(ml, dist, valid_len)
 
     lv, ln = literal_code(data_padded[:, :s])
     mv, mn = match_token(ml.clamp(min=MIN_MATCH), dist.clamp(1, WINDOW_SIZE))

@@ -18,9 +18,11 @@ BatchDecompressor on both decode sets; and the device busy share of one
 decompress and one compress from torch.profiler. First, the L6 analyze
 step split into its parts on the L6 pass's 259 windows (CUDA events, each
 part alone): the match finder (the kernel, and its plain version on the
-card), extend_runs, select_tokens_l6 (lazy demotion and selection) and
-the histograms, and analyze_block_l6 whole with each finder; with
---analyze-only, only that. Each line is printed,
+card) and the select kernel (ops/select.py: run extension, lazy
+demotion, selection and the histograms), and analyze_block_l6 whole
+with each finder; beside them the select kernel's plain version whole
+and in its three parts (extend_runs, select_tokens_l6, the histograms);
+with --analyze-only, only that. Each line is printed,
 and copied to FILE when given. Needs one CUDA card; the corpus and the
 card and build phases are chip_smoke.py's.
 """
@@ -80,12 +82,14 @@ def analyze_split(items, say, reps: int = 5):
     """Device ms of analyze_block_l6 and of each of its parts on the L6
     pass's windows of the items, each part alone on its own inputs (CUDA
     events, the mean of reps calls): first with the match finder's plain
-    version on the card, then with its kernel."""
+    version on the card, then with its kernel; the select kernel in both,
+    and its plain version whole and in its parts beside it."""
     import torch
 
     import chip_smoke as cs
     from libdeflate_rsx_tpu_torch.ops import encode_dynamic as ed
     from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+    from libdeflate_rsx_tpu_torch.ops import select as sl
     from libdeflate_rsx_tpu_torch.ops.encode_v2 import extend_runs
 
     rows, valid, hist, s = cs.l6_windows_of(items, BLOCK)
@@ -96,16 +100,20 @@ def analyze_split(items, say, reps: int = 5):
         ms = {"find_matches_l6": cs.time_cuda(
             lambda: finder(rows, valid, hist, s), reps)}
         ml, dist = finder(rows, valid, hist, s)
-        ms["extend_runs"] = cs.time_cuda(
+        ms["select"] = cs.time_cuda(
+            lambda: sl.select(ml, dist, valid, rows, l6=True), reps)
+        plain = {"select_plain": cs.time_cuda(
+            lambda: sl.select_plain(ml, dist, valid, rows, l6=True), reps)}
+        plain["extend_runs"] = cs.time_cuda(
             lambda: extend_runs(ml, dist, valid), reps)
         ext = extend_runs(ml, dist, valid)
-        ms["select_tokens_l6"] = cs.time_cuda(
+        plain["select_tokens_l6"] = cs.time_cuda(
             lambda: ed.select_tokens_l6(ext, dist, valid), reps)
         sel_ml, sel, lit = (x[:, ed.HIST:] for x in
                             ed.select_tokens_l6(ext, dist, valid))
         pay = dist[:, ed.HIST:]
         byte = rows[:, ed.HIST:s].to(torch.int64)
-        ms["histograms"] = cs.time_cuda(
+        plain["histograms"] = cs.time_cuda(
             lambda: ed._histograms(byte, sel_ml, pay, sel, lit), reps)
         ml6.find_matches_l6 = finder      # analyze_block_l6 takes it
         try:
@@ -117,7 +125,8 @@ def analyze_split(items, say, reps: int = 5):
             f"of {s} positions; CUDA events, {reps} calls each): "
             + " ".join(f"{k} {v:.3f}" for k, v in ms.items())
             + f" (sum {sum(ms.values()):.3f}); analyze_block_l6 {whole:.3f} "
-              f"ms")
+              f"ms; beside them the select kernel's plain version: "
+            + " ".join(f"{k} {v:.3f}" for k, v in plain.items()) + " ms")
 
 
 def busy_share(name, fn, say):

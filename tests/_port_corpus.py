@@ -597,3 +597,91 @@ def l6_windows(block: int = 16384, seed: int = 11):
     return (labels, np.stack([o[1] for o in out]),
             np.array([o[2] for o in out], np.int32),
             np.array([o[3] for o in out], np.int32), s)
+
+
+# ------------------------------------------------- selection edge arrays
+SELECT_S = L6_HIST + 8192   # window of the selection edge arrays
+
+
+def select_cases(seed: int = 13):
+    """Seeded match-finder outputs that hit the selection's traps, in
+    windows of SELECT_S positions (a 32 KiB history and two 4,096-position
+    tiles of payload): (labels, ml (B, s) int64, dist (B, s) int64, valid
+    (B,) int32, data (B, s + L6_ROW_PAD) uint8). Every row has random
+    background matches over the whole window; the labelled features sit
+    in the payload, at tile (HIST + 4096), 256- and 64-position cell
+    edges."""
+    import numpy as np
+
+    s, h = SELECT_S, L6_HIST
+    rng = np.random.default_rng(seed)
+    out = []
+
+    def background():
+        ml = rng.choice([0, 0, 0, 4, 5, 6, 8, 12, 20], size=s)
+        dist = rng.integers(1, 40, s)
+        run = rng.random(s) < 0.6               # same-distance runs
+        for t in np.flatnonzero(run[1:]) + 1:
+            dist[t] = dist[t - 1]
+        return ml.astype(np.int64), dist.astype(np.int64)
+
+    def chain(ml, dist, at, length, d, top=8):
+        # a same-distance run as a match finder reports it: lengths
+        # capped at `top`, falling to 4 at its end
+        t = np.arange(length)
+        ml[at:at + length] = np.clip(length + 3 - t, 4, top)
+        dist[at:at + length] = d
+
+    def add(label, ml, dist, valid=s):
+        ml = np.minimum(ml, np.clip(valid - np.arange(s), 0, 258))
+        out.append((label, np.where(ml >= 4, ml, 0), dist, valid))
+
+    ml, dist = background()
+    for at, n in ((h + 4096 - 37, 90), (h + 256 - 5, 20), (h + 1024 - 61, 9),
+                  (h + 64 * 40 - 3, 300), (h + 4096 * 2 - 40, 40),
+                  (h - 20, 50)):
+        chain(ml, dist, at, n, 1000 + at % 997)
+    add("chains across tile and cell edges", ml, dist)
+
+    ml, dist = background()
+    for at, n in ((h + 100, 700), (h + 4096 - 300, 1100), (h + 6000, 520)):
+        chain(ml, dist, at, n, 3, top=258)
+    add("runs past the 256-byte grid", ml, dist)
+
+    ml, dist = background()
+    for k, at in enumerate(range(h + 200, s - 300, 150)):
+        ln = (31, 32, 33)[k % 3]
+        ml[at - 20:at] = 0                      # nothing covers it
+        ml[at] = ln
+        dist[at] = 5000 + k
+        if k % 4 == 0:                          # a long match close behind
+            ml[at + ln // 2] = (33, 32, 31)[k % 3]
+            dist[at + ln // 2] = 7000 + k
+    add("lengths 31, 32 and 33", ml, dist)
+
+    ml, dist = background()
+    cell = h + 4096 + 512
+    ml[cell:cell + 256] = 4
+    dist[cell:cell + 256] = 100 + np.arange(256) % 2
+    add("a cell of 64 four-byte matches", ml, dist)
+
+    ml, dist = background()
+    for at in range(h + 11, s - 10, 97):        # demotion: a longer match next
+        ml[at], ml[at + 1] = 5, 9
+        dist[at], dist[at + 1] = 300, 301
+    add("lazy demotion", ml, dist)
+
+    ml, dist = background()
+    add("valid_len not a multiple of a cell", ml, dist, valid=h + 5000 + 37)
+    ml, dist = background()
+    add("valid_len HIST", ml, dist, valid=h)
+    ml, dist = background()
+    add("valid_len below HIST", ml, dist, valid=h - 100)
+    add("one run over the window", np.full(s, 258, np.int64),
+        np.ones(s, np.int64))
+    add("no matches", np.zeros(s, np.int64), rng.integers(0, 9, s))
+    labels = [o[0] for o in out]
+    data = rng.integers(0, 256, (len(out), s + L6_ROW_PAD), dtype=np.uint8)
+    return (labels, np.stack([o[1] for o in out]),
+            np.stack([o[2] for o in out]),
+            np.array([o[3] for o in out], np.int32), data)

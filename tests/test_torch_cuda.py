@@ -1,9 +1,10 @@
 """The port on a CUDA card: the pass-1, inflate_v2, inflate_static,
-dyn_tables, assembly, resolve and match_l6 kernels against their plain PyTorch
-versions on the card, the slice through the kernels, the level 0-6 compress tiers
-(card bytes equal to CPU bytes, decoded through the kernels) and the
-device checksums under TF32 and bf16 matmul precision. Every test here needs a card and skips
-without one.
+dyn_tables, assembly, resolve, match_l6 and select kernels against
+their plain PyTorch versions on the card, the slice through the
+kernels, the level 0-6 compress tiers (card bytes equal to CPU bytes,
+decoded through the kernels) and the device checksums under TF32 and
+bf16 matmul precision. Every test here needs a card and skips without
+one.
 
 Run on a machine with a card (the suite's conftest.py imports jax, which
 such a machine need not have): python -m pytest --noconftest
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from _port_corpus import (RESOLVE_CASES, edge_cases, edge_rows, l6_windows,
-                          make_corpus, mutated_streams)
+                          make_corpus, mutated_streams, select_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -452,14 +453,16 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
                                                         monkeypatch):
     """BatchCompressor at levels 1, 4 and 6 on the card: the CPU's bytes,
     with one assembly launch a pass and, at levels 4 and 6, one table
-    launch a pass, at level 6 one match_l6 launch a pass; what the flow copies off the card is the joined
-    streams (1-D uint8) and the blocks' byte counts and sizes ((2, B)
-    int64), no histogram, table or row buffer."""
+    launch a pass, at level 6 one match_l6 launch a pass, and one select
+    launch a pass at every level; what the flow copies off the card is
+    the joined streams (1-D uint8) and the blocks' byte counts and sizes
+    ((2, B) int64), no histogram, table or row buffer."""
     from libdeflate_rsx_tpu_torch import BatchCompressor
     from libdeflate_rsx_tpu_torch.models import greedy_static as gs
     from libdeflate_rsx_tpu_torch.ops import assemble as asm
     from libdeflate_rsx_tpu_torch.ops import dyn_tables as dt
     from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+    from libdeflate_rsx_tpu_torch.ops import select as sl
 
     phases = []
     monkeypatch.setattr(gs, "PHASE_END", phases.append)
@@ -473,6 +476,7 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
             return _orig(self, *a, **k)
         monkeypatch.setattr(torch.Tensor, name, spy)
     tables, places, matches = dt.LAUNCHES, asm.LAUNCHES, ml6.LAUNCHES
+    selects = sl.LAUNCHES
     gpu = BatchCompressor(level=level, use_device=True,
                           device=card).compress_batch(TIER_DATAS)
     monkeypatch.undo()
@@ -484,6 +488,7 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
     assert passes >= 1 and asm.LAUNCHES == places + passes
     assert dt.LAUNCHES == tables + (passes if level >= 4 else 0)
     assert ml6.LAUNCHES == matches + (passes if level >= 6 else 0)
+    assert sl.LAUNCHES == selects + passes
     assert phases.count("tables") == (passes if level >= 4 else 0)
     cpu = BatchCompressor(level=level, use_device=True,
                           device="cpu").compress_batch(TIER_DATAS)
@@ -657,3 +662,109 @@ def test_match_l6_kernel_empty_batch_and_guards(card):
     with pytest.raises(ValueError):
         ml6.find_matches_l6(torch.zeros((1, s + 8), dtype=torch.uint8,
                                         device=card), one, one, s)
+
+
+# ------------------------------------------------------------ selection
+SELECT_FLAGS = {"l6": (True, True), "dynamic": (False, True),
+                "static": (False, False)}
+
+
+def _select_equal(ml, dist, valid, data, l6):
+    """The select kernel (one launch) against its plain version on the
+    same card tensors: every output equal, of the plain version's dtypes
+    and shapes, dist a slice of its input. data None: no histograms."""
+    from libdeflate_rsx_tpu_torch.ops import select as sl
+
+    before = sl.LAUNCHES
+    got = sl.select(ml, dist, valid, data, l6=l6)
+    assert sl.LAUNCHES == before + (ml.shape[0] > 0)
+    want = sl.select_plain(ml, dist, valid, data, l6=l6)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == (4 if data is None else 6)
+    assert got[1].data_ptr() == want[1].data_ptr()
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert g.shape == w.shape and torch.equal(g, w)
+    return got
+
+
+def test_select_kernel_equals_plain_on_trap_windows(card):
+    """The L6 trap windows (tests/test_torch_select.py), through the
+    match kernel first, as analyze_block_l6 runs them."""
+    from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+
+    _, rows, valid, hist, s = l6_windows()
+    rows, valid, hist = (torch.from_numpy(x).to(card)
+                         for x in (rows, valid, hist))
+    ml, dist = ml6.find_matches_l6(rows, valid, hist, s)
+    _select_equal(ml, dist, valid.long(), rows, True)
+
+
+@pytest.mark.parametrize("flags", list(SELECT_FLAGS))
+def test_select_kernel_equals_plain_on_edge_arrays(card, flags):
+    """The seeded edge arrays of tests/_port_corpus.select_cases at each
+    caller's flags (cells of 256 and 64)."""
+    _, ml, dist, valid, data = select_cases()
+    l6, hist = SELECT_FLAGS[flags]
+    _select_equal(*(torch.from_numpy(x).to(card) for x in (ml, dist, valid)),
+                  torch.from_numpy(data).to(card) if hist else None, l6)
+
+
+def test_select_kernel_equals_plain_on_the_largest_windows(card):
+    """The L6 tier's largest windows whose payload the 256-position cells
+    divide (97,792-byte blocks; the match finder admits up to 98,045),
+    and a 65,536-byte payload of one literal byte, whose bin saturates."""
+    from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+
+    _, rows, valid, hist, s = l6_windows(block=97792)
+    rows, valid, hist = (torch.from_numpy(x).to(card)
+                         for x in (rows, valid, hist))
+    ml, dist = ml6.find_matches_l6(rows, valid, hist, s)
+    _select_equal(ml, dist, valid.long(), rows, True)
+    s = 32768 + 65536
+    zero = torch.zeros((1, s), dtype=torch.int64, device=card)
+    got = _select_equal(zero, zero, torch.full((1,), s, device=card),
+                        torch.full((1, s + 266), 7, dtype=torch.uint8,
+                                   device=card), True)
+    assert int(got[4][0, 7]) == 65535
+
+
+@pytest.mark.parametrize("block", [16384, 65536, 262144])
+@pytest.mark.parametrize("kind", ["text", "random", "zeros", "periodic:7"])
+def test_select_kernel_equals_plain_on_flow_rows(card, kind, block):
+    """The L1-5 tiers' rows (find_matches_v2 on the flow's blocks, a short
+    last block) at their flags, up to 256 KiB blocks."""
+    from libdeflate_rsx_tpu_torch.models import greedy_static as gs
+    from libdeflate_rsx_tpu_torch.ops.encode_v2 import find_matches_v2
+
+    data = make_corpus(kind, 2 * block + 777, seed=len(kind))
+    arr, valid, _, _ = gs.split_blocks(data, block)
+    arr, valid = torch.from_numpy(arr).to(card), \
+        torch.from_numpy(valid).to(card).long()
+    ml, dist = find_matches_v2(arr, valid, block)
+    for name in ("dynamic", "static"):
+        _select_equal(ml, dist, valid, arr if name == "dynamic" else None,
+                      False)
+
+
+def test_select_kernel_empty_batch_and_guards(card):
+    from libdeflate_rsx_tpu_torch.ops import select as sl
+
+    s = 32768 + 16384
+    none = torch.zeros((0, s), dtype=torch.int64, device=card)
+    got = _select_equal(none, none, torch.zeros(0, dtype=torch.int64,
+                                                device=card),
+                        torch.zeros((0, s + 266), dtype=torch.uint8,
+                                    device=card), True)
+    assert got[0].shape == (0, 16384) and got[4].shape == (0, 288)
+    one = torch.zeros((1, s), dtype=torch.int64, device=card)
+    valid = torch.full((1,), s, device=card)
+    rows = torch.zeros((1, s + 266), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError):                  # cells of 256
+        sl.select(one[:, :s - 64], one[:, :s - 64], valid, rows, l6=True)
+    with pytest.raises(ValueError):                  # short of HIST
+        sl.select(one[:, :1024], one[:, :1024], valid, rows, l6=True)
+    with pytest.raises(ValueError):
+        sl.select(one.int(), one, valid, rows, l6=True)
+    with pytest.raises(ValueError):
+        sl.select(one, one, valid, rows[:, :s - 1], l6=True)
