@@ -150,11 +150,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    259 windows, of zeros and random windows and of the trap windows;
    the L4 pass's windows (find_matches_v2) at the L4 and L1 flags
    (cells of 64, with and without histograms); the seeded edge arrays
-   of tests/_port_corpus.py select_cases at the three callers' flags:
-   ml, sel, lit, ll_hist and of_hist equal; then timed on the 259 L6
-   windows (the record) beside the plain version on the card; the
-   bound counts the payload's (ml, dist) and bytes in, (ml, sel, lit)
-   and the histograms out.
+   of tests/_port_corpus.py select_cases and the tile-edge arrays of
+   its select_tile_cases (chains, runs, long matches, valid_len and
+   lazy-demotion pairs at the kernel's tile edges and halo ends) at
+   the three callers' flags: ml, sel, lit, ll_hist and of_hist equal;
+   then timed on the 259 L6 windows (the record) beside the plain
+   version on the card, and on one L1 per-item pass's 16 windows and
+   the L4 pass's windows; the bound counts the payload's (ml, dist)
+   and bytes in, (ml, sel, lit) and the histograms out.
 
 Phases 13-21 drive the level 0-5 tiers, the checksums, the memory
 budget and the sharded paths, the port's modules with no kernel of
@@ -1925,8 +1928,9 @@ def phase_select_kernel(items, card: str):
     Returns the record."""
     import numpy as np
     import torch
-    from _port_corpus import l6_windows, select_cases
+    from _port_corpus import l6_windows, select_cases, select_tile_cases
     from libdeflate_rsx_tpu_torch.models import greedy_dynamic as gd
+    from libdeflate_rsx_tpu_torch.models import greedy_static as gs
     from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
     from libdeflate_rsx_tpu_torch.ops import select as sl
     from libdeflate_rsx_tpu_torch.ops.encode_v2 import find_matches_v2
@@ -1955,18 +1959,38 @@ def phase_select_kernel(items, card: str):
                                 "the L4 windows"))
     errs.append(select_vs_plain(ml4, dist4, valid4, None, False,
                                 "the L4 windows at the L1 flags"))
-    e_labels, e_ml, e_dist, e_valid, e_data = (
-        x if isinstance(x, list) else torch.from_numpy(x).cuda()
-        for x in select_cases())
-    for l6, data in ((True, e_data), (False, e_data), (False, None)):
-        errs.append(select_vs_plain(e_ml, e_dist, e_valid, data, l6,
-                                    "the edge arrays"))
+    # the tile-edge arrays sit at the tile edges of the flags' payload
+    edge = select_cases()
+    tile_edge = {start: select_tile_cases(start) for start in (gd.HIST, 0)}
+    for l6, hist in ((True, True), (False, True), (False, False)):
+        for _, *arrays in (edge, tile_edge[gd.HIST if l6 else 0]):
+            e_ml, e_dist, e_valid, e_data = (torch.from_numpy(x).cuda()
+                                             for x in arrays)
+            errs.append(select_vs_plain(e_ml, e_dist, e_valid,
+                                        e_data if hist else None, l6,
+                                        "the edge arrays"))
+    e_labels = edge[0] + tile_edge[0][0]
     log(f"select vs plain: equal on the {rows.shape[0]} corpus windows "
         f"(s = {s}), 2 zeros and 2 random windows of that width, "
         f"{len(labels)} trap windows (s = {t_s}), the {arr.shape[0]} L4 "
-        f"windows at the L4 and L1 flags and {len(e_labels)} edge arrays "
-        f"at the three flags ({', '.join(e_labels)}), max abs err "
-        f"{max(errs)}")
+        f"windows at the L4 and L1 flags and {len(e_labels)} edge and "
+        f"tile-edge arrays at the three flags ({', '.join(e_labels)}), "
+        f"max abs err {max(errs)}")
+    # one L1 per-item pass's windows (the first item's, cells of 64, no
+    # histograms) and the L4 pass's, timed beside the record
+    arr1, valid1, _, _ = gs.split_blocks(items[0], SLICE)
+    arr1, valid1 = torch.from_numpy(arr1).cuda(), \
+        torch.from_numpy(valid1).cuda().long()
+    ml1, dist1 = find_matches_v2(arr1, valid1, SLICE)
+    errs.append(select_vs_plain(ml1, dist1, valid1, None, False,
+                                "an L1 pass's windows"))
+    for label, args in ((f"an L1 pass's {arr1.shape[0]} windows",
+                         (ml1, dist1, valid1, None)),
+                        (f"the L4 pass's {arr.shape[0]} windows",
+                         (ml4, dist4, valid4, arr))):
+        t = time_cuda(lambda: sl.select(*args), KERNEL_REPS)
+        log(f"select on {label}: kernel {t:.4f} ms (CUDA events, "
+            f"{KERNEL_REPS} calls) [{card}]")
     ms = time_cuda(lambda: sl.select(*main, l6=True), KERNEL_REPS)
     plain_ms = time_cuda(lambda: sl.select_plain(*main, l6=True),
                          KERNEL_REPS)

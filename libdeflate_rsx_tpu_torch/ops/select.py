@@ -8,8 +8,9 @@ for the dynamic tiers, the per-block litlen and offset histograms.
 `select` launches the CUDA kernel `csrc/select.cu` for CUDA tensors and
 runs the plain version, `select_plain` (the port's copy of those
 graphs), for CPU tensors. Both give the same outputs; the kernel's
-source notes its design (one thread block per window, tiles walked with
-their carries, one thread walking each cell, in one launch).
+source notes its design (a thread block per tile of a window over its
+halos, every tile at once, the run start passed by a look-back over the
+window's earlier tiles, every cell walked at once, in one launch).
 
 The three callers take the same function with their flags:
 `analyze_block_l6` (l6: cells of 256, outputs from HIST, lazy demotion,
@@ -40,6 +41,8 @@ def _lib():
         lib.ldrsx_select.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i,
                                      i, i, p, p, p, p, p, p, p]
         lib.ldrsx_select.restype = ctypes.c_int
+        lib.ldrsx_select_scratch.argtypes = [i, i, i, i]
+        lib.ldrsx_select_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -95,7 +98,11 @@ def select(ml: torch.Tensor, dist: torch.Tensor, valid_len: torch.Tensor,
             f"{wtile}, (B,), and uint8 (B, >= s) or None")
     dev = ml.device
     n = s - start
-    mlc, distc = ml.contiguous(), dist.contiguous()
+    # the kernel reads (ml, dist) with 16-byte loads
+    mlc, distc = (x.contiguous() for x in (ml, dist))
+    mlc, distc = (x if x.data_ptr() % 16 == 0 else
+                  x.clone(memory_format=torch.contiguous_format)
+                  for x in (mlc, distc))
     valid = valid_len.to(device=dev, dtype=torch.int32).contiguous()
     rows = None if data is None else data.contiguous()
     # the kernel writes every element of its outputs
@@ -109,15 +116,19 @@ def select(ml: torch.Tensor, dist: torch.Tensor, valid_len: torch.Tensor,
         out += (ll, of)
     if b == 0:
         return out
-    scratch = torch.empty((b, n), dtype=torch.int16, device=dev)
     with torch.cuda.device(dev):
-        rc = _lib().ldrsx_select(
+        lib = _lib()
+        # the kernel's state (cleared by the C call before its launch)
+        state = torch.empty(max(lib.ldrsx_select_scratch(
+            b, s, start, int(data is not None)), 4), dtype=torch.uint8,
+            device=dev)
+        rc = lib.ldrsx_select(
             mlc.data_ptr(), distc.data_ptr(), valid.data_ptr(),
             None if rows is None else rows.data_ptr(),
             0 if rows is None else rows.shape[1], b, s, start, wtile, int(l6),
             ml_out.data_ptr(), sel.data_ptr(), lit.data_ptr(),
             None if data is None else ll.data_ptr(),
-            None if data is None else of.data_ptr(), scratch.data_ptr(),
+            None if data is None else of.data_ptr(), state.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"select kernel launch failed: CUDA error {rc}")

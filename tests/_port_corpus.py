@@ -685,3 +685,123 @@ def select_cases(seed: int = 13):
     return (labels, np.stack([o[1] for o in out]),
             np.stack([o[2] for o in out]),
             np.array([o[3] for o in out], np.int32), data)
+
+
+SELECT_TILE = 3328      # payload positions a tile of csrc/select.cu takes
+SELECT_TILE_S = L6_HIST + 4 * SELECT_TILE   # window of the tile-edge arrays
+
+
+def select_tile_cases(start: int = L6_HIST, seed: int = 17,
+                      tile: int = SELECT_TILE):
+    """Seeded match-finder outputs at the select kernel's tile edges, in
+    windows of SELECT_TILE_S positions with the three tile edges E_k =
+    start + k * tile, k = 1..3, of a payload from `start` (L6_HIST for
+    the L6 flags, 0 for the others, whose tiles start at 0): (labels, ml
+    (B, s) int64, dist (B, s) int64, valid (B,) int32, data (B, s +
+    L6_ROW_PAD) uint8), as select_cases gives them. A run "ends" at its
+    last member. Each feature sits in a quiet stretch (no background
+    match) that keeps it apart from the random background matches."""
+    import numpy as np
+
+    s = SELECT_TILE_S
+    edge = [start + k * tile for k in (1, 2, 3)]
+    rng = np.random.default_rng(seed + start)
+    out = []
+    dists = iter(range(2000, 30000, 7))     # a distance no other run has
+
+    def background():
+        ml = rng.choice([0, 0, 0, 4, 5, 6, 8, 12, 20], size=s)
+        dist = rng.integers(1, 40, s)
+        run = rng.random(s) < 0.6
+        for t in np.flatnonzero(run[1:]) + 1:
+            dist[t] = dist[t - 1]
+        return ml.astype(np.int64), dist.astype(np.int64)
+
+    def run(ml, dist, first, last, top=258):
+        # a same-distance run [first, last] as a match finder reports it
+        # (lengths capped at `top`, falling to 4 at its end), with a quiet
+        # position on each side
+        t = np.arange(last + 1 - first)
+        ml[first - 1] = ml[last + 1] = 0
+        ml[first:last + 1] = np.clip(last + 4 - first - t, 4, top)
+        dist[first:last + 1] = next(dists)
+
+    def one(ml, dist, at, length):
+        # a lone match: nothing covers it or chains into or out of it
+        ml[at - 1] = ml[at + 1] = 0
+        ml[at] = length
+        dist[at] = next(dists)
+
+    def add(label, ml, dist, valid=s):
+        ml = np.minimum(ml, np.clip(valid - np.arange(s), 0, 258))
+        out.append((label, np.where(ml >= 4, ml, 0), dist, valid))
+
+    # chains crossing an edge: capped at 258 all along before E1; capped
+    # and short of the cap before E2; at E3, lengths of 4 whose ext at
+    # E3 reaches 258 only through the member at E3 + 254
+    ml, dist = background()
+    run(ml, dist, edge[0] - 40, edge[0] + 259, top=8)
+    run(ml, dist, edge[1] - 150, edge[1] + 149, top=8)
+    run(ml, dist, edge[2] - 500, edge[2] + 499, top=4)
+    add("chains across a tile edge at the 258 cap", ml, dist)
+
+    # the right halo's last member: ext[E] = 258 only from E + 254, and
+    # the lazy rule demotes E - 1 (257) because of it
+    ml, dist = background()
+    for e in edge:
+        ml[e - 4:e + 262] = 0
+        run(ml, dist, e, e + 254, top=4)
+        ml[e - 1], dist[e - 1] = 257, next(dists)
+    add("ext at a tile edge from the right halo's end", ml, dist)
+
+    # one run over the whole of tile 1 and into tile 2: the run start
+    # crosses a tile whose status holds no boundary
+    ml, dist = background()
+    run(ml, dist, edge[0] - 1000, edge[1] + 503)
+    add("a run over a whole tile", ml, dist)
+
+    ml, dist = background()
+    run(ml, dist, edge[0] - 1600, edge[0] - 1)
+    run(ml, dist, edge[1] - 1600, edge[1])
+    run(ml, dist, edge[2] - 1600, edge[2] - 512)
+    add("runs ending at E - 1, E and E - 512", ml, dist)
+
+    ml, dist = background()
+    run(ml, dist, edge[0] - 1600, edge[0] - 513)
+    run(ml, dist, edge[1] - 1600, edge[1] - 511)
+    run(ml, dist, edge[2] - 1600, edge[2] - 2)
+    add("runs ending at E - 513, E - 511 and E - 2", ml, dist)
+
+    # long matches whose raw and selected ends cross an edge: at E1 a
+    # staircase of raw ends (none of the middle four selected), at E2 a
+    # selected match covering E2, at E3 a match at E3 - 255 that the raw
+    # end of E3 - 510 keeps unselected, so that E3 is not covered
+    ml, dist = background()
+    for e in edge:
+        ml[e - 600:e + 300] = 0
+    for off, length in ((-500, 250), (-260, 200), (-240, 250), (-55, 100),
+                        (20, 40), (61, 50)):
+        one(ml, dist, edge[0] + off, length)
+    one(ml, dist, edge[1] - 100, 200)
+    for off, length in ((-510, 256), (-255, 256), (0, 40), (2, 64)):
+        one(ml, dist, edge[2] + off, length)
+    add("long matches whose ends cross a tile edge", ml, dist)
+
+    ml, dist = background()
+    run(ml, dist, edge[0] - 300, edge[0] + 300)
+    add("valid_len inside a right halo", ml, dist, valid=edge[0] + 100)
+
+    # lazy-demotion pairs straddling the edges and the halos' ends
+    ml, dist = background()
+    for e in edge:
+        for at in (e - 1, e - 513, e + 255):
+            ml[at - 1:at + 3] = 0
+            ml[at], ml[at + 1] = 5, 9
+            dist[at], dist[at + 1] = next(dists), next(dists)
+    add("lazy-demotion pairs across a tile edge", ml, dist)
+
+    labels = [o[0] for o in out]
+    data = rng.integers(0, 256, (len(out), s + L6_ROW_PAD), dtype=np.uint8)
+    return (labels, np.stack([o[1] for o in out]),
+            np.stack([o[2] for o in out]),
+            np.array([o[3] for o in out], np.int32), data)

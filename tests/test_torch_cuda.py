@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from _port_corpus import (RESOLVE_CASES, edge_cases, edge_rows, l6_windows,
-                          make_corpus, mutated_streams, select_cases)
+                          make_corpus, mutated_streams, select_cases,
+                          select_tile_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -706,6 +707,17 @@ def test_select_kernel_equals_plain_on_edge_arrays(card, flags):
     caller's flags (cells of 256 and 64)."""
     _, ml, dist, valid, data = select_cases()
     l6, hist = SELECT_FLAGS[flags]
+    _select_equal(*(torch.from_numpy(x).to(card) for x in (ml, dist, valid)),
+                  torch.from_numpy(data).to(card) if hist else None, l6)
+
+
+@pytest.mark.parametrize("flags", list(SELECT_FLAGS))
+def test_select_kernel_equals_plain_on_tile_edge_arrays(card, flags):
+    """The tile-edge arrays of tests/_port_corpus.select_tile_cases
+    (chains, runs, long matches, valid_len and lazy-demotion pairs at the
+    kernel's tile edges and halo ends) at each caller's flags."""
+    l6, hist = SELECT_FLAGS[flags]
+    _, ml, dist, valid, data = select_tile_cases(32768 if l6 else 0)
     _select_equal(*(torch.from_numpy(x).to(card) for x in (ml, dist, valid)),
                   torch.from_numpy(data).to(card) if hist else None, l6)
 

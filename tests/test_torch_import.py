@@ -59,7 +59,7 @@ def test_import_leaves_jax_out():
 
 PROBES = ["scripts/pass1_probe.py", "scripts/stream_probe.py",
           "scripts/phase_probe_torch.py", "scripts/resolve_probe.py",
-          "scripts/match_probe.py"]
+          "scripts/match_probe.py", "scripts/select_probe.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py",
