@@ -157,7 +157,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    then timed on the 259 L6 windows (the record) beside the plain
    version on the card, and on one L1 per-item pass's 16 windows and
    the L4 pass's windows; the bound counts the payload's (ml, dist)
-   and bytes in, (ml, sel, lit) and the histograms out.
+   and bytes in, (ml, sel, lit) and the histograms out;
+27. the surface the examples and tools use: (a) ops.resolve.
+   resolve_tokens_device on pass 1's token columns of the 256 slices at
+   the 64 KiB out_cap, every output its slice, one resolve-kernel launch,
+   equal to the plain version on the card, timed beside resolve_batch;
+   (b) the nine examples/torch_*.py, each its own process on the card
+   (the two distributed ones as 2 gloo ranks sharing it), all started
+   together, each with its own timeout, every one exiting 0; (c)
+   utils.profiling.device_trace around one L6 compress_batch of a 1 MiB
+   item inside trace("l6_item"): the Chrome trace file names the span
+   and a match- or select-kernel launch.
 
 Phases 13-21 drive the level 0-5 tiers, the checksums, the memory
 budget and the sharded paths, the port's modules with no kernel of
@@ -1406,37 +1416,11 @@ def phase_sharded_gloo(expect: dict, data: bytes, slices, card: str) -> None:
     for o in outs:
         if os.path.exists(o):
             os.remove(o)
-    from libdeflate_rsx_tpu_torch.parallel.multihost import file_rendezvous
-    init = file_rendezvous(tempfile.mkdtemp())
-    logs = [open(os.path.join(outdir, f"rank{r}.log"), "w+")
-            for r in range(N_RANKS)]
+    from libdeflate_rsx_tpu_torch.parallel.entry import run_ranks
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r),
-         str(N_RANKS), init, outs[r], str(reps)], cwd=ROOT,
-        stdout=logs[r], stderr=subprocess.STDOUT, text=True)
-        for r in range(N_RANKS)]
-    try:
-        while any(p.poll() is None for p in procs) \
-                and time.perf_counter() - t0 < RANK_TIMEOUT \
-                and all(p.poll() in (None, 0) for p in procs):
-            time.sleep(0.2)
-        codes = [p.poll() for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    if codes != [0] * N_RANKS:
-        tails = []
-        for r, f in enumerate(logs):
-            f.seek(0)
-            tails.append(f"gloo rank {r} (exit {codes[r]}):\n"
-                         f"{f.read()[-4000:]}")
-        raise AssertionError("phase 20: every rank killed\n"
-                             + "\n".join(tails))
-    for f in logs:
-        f.close()
+    run_ranks(lambda r, init: [
+        sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r),
+        str(N_RANKS), init, outs[r], str(reps)], N_RANKS, RANK_TIMEOUT)
     dt = time.perf_counter() - t0
     for r, o in enumerate(outs):
         res = json.load(open(o))
@@ -2005,6 +1989,139 @@ def phase_select_kernel(items, card: str):
                   plain_ms, nbytes)
 
 
+def phase_resolve_tokens(slices, chunks, rec_rs: dict, card: str) -> None:
+    """Phase 27a: ops.resolve.resolve_tokens_device on pass 1's token
+    columns of the 256 zlib-6 slices at the 64 KiB out_cap, on the card:
+    every output its slice, exactly one resolve-kernel launch, the bytes
+    equal to resolve_batch_plain's on the card; then timed (CUDA events)
+    beside resolve_batch alone on the same columns."""
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import resolve as rs
+
+    tok, _ = pass1_columns(slices, SLICE)
+    run = rs.LAUNCHES
+    got = rs.resolve_tokens_device(tok, SLICE)
+    assert rs.LAUNCHES - run == 1, \
+        f"resolve_tokens_device launched the kernel {rs.LAUNCHES - run} times"
+    bad = [i for i, (g, c) in enumerate(zip(got, chunks)) if g != c]
+    assert len(got) == len(chunks) and not bad, \
+        f"resolve_tokens_device: slices {bad[:10]} differ"
+    out, outlen, ok = rs.resolve_batch_plain(tok, SLICE)
+    out, outlen, ok = out.cpu().numpy(), outlen.tolist(), ok.tolist()
+    plain = [out[i, :outlen[i]].tobytes() if ok[i] else None
+             for i in range(len(ok))]
+    assert got == plain, "resolve_tokens_device != the plain version"
+    ms = time_cuda(lambda: rs.resolve_tokens_device(tok, SLICE), KERNEL_REPS)
+    kernel_ms = time_cuda(lambda: rs.resolve_batch(tok, SLICE), KERNEL_REPS)
+    log(f"resolve_tokens_device on pass 1's tokens of the {len(chunks)} "
+        f"zlib-6 slices (out_cap {SLICE}): every output its slice, equal "
+        f"to the plain version on the card, 1 kernel launch; {ms:.3f} ms a "
+        f"call with its copies to the host, resolve_batch alone on the "
+        f"same columns {kernel_ms:.3f} ms (CUDA events, {KERNEL_REPS} calls "
+        f"each; phase 24's record on the L6 items {rec_rs['ms']:.3f} ms) "
+        f"[{card}]")
+
+
+#: phase 27b: (example, arguments); torch_manual_bench at 1 MiB, since
+#: its default 4 MiB takes ~26 s on the port's pure-Python host codec
+EXAMPLES = (("torch_basics", ()), ("torch_batch", ()),
+            ("torch_checksums", ()), ("torch_gzip_zlib", ()),
+            ("torch_streaming", ()),
+            ("torch_manual_bench", ("--size", str(ITEM))),
+            ("torch_device_tiers", ()), ("torch_sharded", ()),
+            ("torch_multihost_global", ()))
+EXAMPLE_TIMEOUT = 300   # seconds for each example
+
+
+def phase_examples(card: str) -> None:
+    """Phase 27b: every examples/torch_*.py as its own `python3 <file>`
+    process on the card, all started together, each with its own
+    timeout (its process group killed past it); each must exit 0. Logs
+    each one's last stdout line and seconds."""
+    import signal
+
+    import torch
+
+    torch.cuda.empty_cache()
+    d = os.path.join(ROOT, "build", "smoke_examples")
+    os.makedirs(d, exist_ok=True)
+    runs = {}
+    for name, args in EXAMPLES:
+        out = open(os.path.join(d, name + ".log"), "w+")
+        runs[name] = (subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "examples", name + ".py"),
+             *args], cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True), out, time.perf_counter())
+    walls, failed = {}, []
+    try:
+        while len(walls) < len(runs):
+            for name, (p, _, t0) in runs.items():
+                if name in walls:
+                    continue
+                if p.poll() is None and \
+                        time.perf_counter() - t0 > EXAMPLE_TIMEOUT:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+                if p.poll() is not None:
+                    walls[name] = time.perf_counter() - t0
+            time.sleep(0.1)
+    finally:
+        for p, out, _ in runs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    for name, (p, out, _) in runs.items():
+        out.seek(0)
+        text = out.read()
+        out.close()
+        lines = text.strip().splitlines() or [""]
+        log(f"example {name}.py: exit {p.returncode} in {walls[name]:.1f} s;"
+            f" last line: {lines[-1]}")
+        if p.returncode != 0:
+            failed.append(f"{name}.py (exit {p.returncode}):\n"
+                          f"{text[-3000:]}")
+    assert not failed, "examples failed:\n" + "\n".join(failed)
+    log(f"examples: {len(runs)} of {len(runs)} exit 0 [{card}]")
+
+
+def phase_trace(data: bytes, card: str) -> None:
+    """Phase 27c: utils.profiling.device_trace around one
+    BatchCompressor(level=6, use_device=True).compress_batch of one 1 MiB
+    corpus item inside trace("l6_item"): the Chrome trace file must name
+    the span and hold a launch of the match or the select kernel. A trace
+    that records no kernel at all (the profiler drops the device's
+    activity at random on the card machine, see `kernel_times`) is taken
+    again, up to 3 times."""
+    import glob
+    import shutil
+
+    from libdeflate_rsx_tpu_torch import BatchCompressor
+    from libdeflate_rsx_tpu_torch.utils.profiling import device_trace, trace
+
+    bc = BatchCompressor(level=6, use_device=True, device="cuda")
+    item = data[:ITEM]
+    want = ("match_l6_kernel", "select_kernel")
+    for attempt in range(1, 4):
+        d = os.path.join(ROOT, "build", "smoke_trace")
+        shutil.rmtree(d, ignore_errors=True)
+        with device_trace(d):
+            with trace("l6_item"):
+                out = bc.compress_batch([item])
+        assert zlib.decompress(out[0], -15) == item, "l6_item round trip"
+        (path,) = glob.glob(os.path.join(d, "*.json"))
+        events = json.load(open(path))["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        if kernels:
+            break
+    spans = [e for e in events if e.get("name") == "l6_item"]
+    ours = sorted({w for w in want for k in kernels if w in k})
+    assert spans, "the trace file does not name the l6_item span"
+    assert ours, f"no match or select kernel in the trace: {kernels[:20]}"
+    log(f"device_trace of one L6 item (attempt {attempt}): "
+        f"{os.path.basename(path)} holds the l6_item span and "
+        f"{', '.join(ours)} among {len(kernels)} kernel events [{card}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2135,6 +2252,12 @@ def main() -> int:
     rec_sl = phase_select_kernel(items, card)
     rec_sl["launches"] = launches_sl
     log(f"phase 26 (the select kernel): "
+        f"{time.perf_counter() - t_tail:.1f} s")
+    t_tail = time.perf_counter()
+    phase_resolve_tokens(slices, chunks, rec_rs, card)
+    phase_examples(card)
+    phase_trace(data, card)
+    log(f"phase 27 (resolve_tokens_device, the examples, the trace): "
         f"{time.perf_counter() - t_tail:.1f} s")
     assert "jax" not in sys.modules, "the port imported jax"
     assert not any(m.split(".")[0] == "libdeflate_rsx_tpu"

@@ -18,6 +18,9 @@ start offsets), points at its source (`p - dist` inside a match, itself
 at a literal), and pointer doubling walks every position to its root
 literal in ceil(log2(chain depth)) gather rounds. A final gather reads
 the bytes.
+
+`resolve_tokens_device` is the list form of the JAX package's function
+of that name: token columns in, one `bytes` or None per stream out.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 from . import _build
 from .tokens import KIND_SHIFT
 
-__all__ = ["resolve_batch", "resolve_batch_plain"]
+__all__ = ["resolve_batch", "resolve_batch_plain", "resolve_tokens_device"]
 
 #: kernel launches made by `resolve_batch` (the plain version does not
 #: count)
@@ -146,3 +149,22 @@ def resolve_batch_plain(tokens: torch.Tensor, out_cap: int,
 
     out = torch.gather(lit, 1, par).to(torch.uint8)
     return out, torch.clamp(outlen, max=N), ok
+
+
+def resolve_tokens_device(token_cols, out_cap: int,
+                          device=None) -> list[bytes | None]:
+    """Resolve a batch of pass-1 token columns on `device` (default:
+    cuda; "cpu" runs the plain version).
+
+    token_cols: (B, T) int32, a numpy array or a tensor: one stream per
+    row, tokens step-major, NOPs anywhere. Row i gives
+    `out[i, :min(outlen[i], out_cap)]` as bytes when it is ok, else None.
+    On a card the resolve kernel runs once, and out, outlen and ok come
+    to the host in one copy each. T == 0 gives empty bytes for every row
+    (the JAX function raises an IndexError there)."""
+    device = torch.device(device or "cuda")
+    toks = torch.as_tensor(token_cols, dtype=torch.int32).to(device)
+    out, outlen, ok = resolve_batch(toks, out_cap)
+    out_h, len_h, ok_h = out.cpu().numpy(), outlen.tolist(), ok.tolist()
+    return [out_h[i, :len_h[i]].tobytes() if ok_h[i] else None
+            for i in range(len(ok_h))]

@@ -6,7 +6,8 @@ static-Huffman block encoder (`ops/encode_v2.encode_rows_static`) over
 a batch of blocks, with example arguments on the card (or the CPU).
 
 `dryrun_multichip(n)` starts n gloo ranks on the CPU, each a child
-process with a timeout, that run the sharded gzip round trip of the
+process with a timeout (`run_ranks`, which the port's distributed
+examples use too), that run the sharded gzip round trip of the
 static tier, the dynamic tier and the sharded two-pass decode on tiny
 shapes. The ranks meet at a file rendezvous in a temporary directory.
 Run one rank by hand with
@@ -54,11 +55,14 @@ def entry(device=None):
     return fn, example_args
 
 
-def dryrun_multichip(n_devices: int, timeout: float = 300.0) -> None:
-    """Run the sharded paths on n_devices gloo ranks on the CPU, each a
-    child process; the ranks wait half of `timeout` for each other. Raises
-    when a rank fails or the ranks outlast `timeout` seconds: every
-    child is killed then, and the error holds each rank's stderr tail."""
+def run_ranks(command, n: int, timeout: float, stdout0=None) -> None:
+    """Run n ranks, each the child process `command(rank, init)` (an argv
+    list) from the repo root, that meet at `init`, a file rendezvous in a
+    new temporary directory. Rank 0's stdout goes to `stdout0` (default:
+    discarded), the others' is discarded; each rank's stderr goes to a
+    temporary file. Raises RuntimeError when a rank fails or the ranks
+    outlast `timeout` seconds: every rank is killed then, and the error
+    holds each rank's exit code and the tail of its stderr."""
     from .multihost import file_rendezvous
 
     env = dict(os.environ)
@@ -68,11 +72,11 @@ def dryrun_multichip(n_devices: int, timeout: float = 300.0) -> None:
         init = file_rendezvous(stack.enter_context(
             tempfile.TemporaryDirectory()))
         logs = [stack.enter_context(tempfile.TemporaryFile("w+"))
-                for _ in range(n_devices)]
+                for _ in range(n)]
         procs = [subprocess.Popen(
-            [sys.executable, "-m", "libdeflate_rsx_tpu_torch.parallel.entry",
-             str(rank), str(n_devices), init, str(timeout / 2)],
-            cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=log)
+            command(rank, init), cwd=ROOT, env=env,
+            stdout=stdout0 if rank == 0 and stdout0 is not None
+            else subprocess.DEVNULL, stderr=log)
             for rank, log in enumerate(logs)]
         try:
             while any(p.poll() is None for p in procs) \
@@ -85,14 +89,27 @@ def dryrun_multichip(n_devices: int, timeout: float = 300.0) -> None:
                 if p.poll() is None:
                     p.kill()
                 p.wait()
-        if codes != [0] * n_devices:
+        if codes != [0] * n:
+            why = ("a rank failed" if any(c not in (None, 0) for c in codes)
+                   else f"the ranks outlasted {timeout} s")
             tails = []
             for rank, log in enumerate(logs):
                 log.seek(0)
                 tails.append(f"rank {rank} (exit {codes[rank]}):\n"
                              f"{log.read()[-3000:]}")
-            raise RuntimeError("dryrun_multichip failed (every rank "
-                               "killed):\n" + "\n".join(tails))
+            raise RuntimeError(f"{why}; every rank killed:\n"
+                               + "\n".join(tails))
+
+
+def dryrun_multichip(n_devices: int, timeout: float = 300.0) -> None:
+    """Run the sharded paths on n_devices gloo ranks on the CPU, each a
+    child process; the ranks wait half of `timeout` for each other. Raises
+    when a rank fails or the ranks outlast `timeout` seconds: every
+    child is killed then, and the error holds each rank's stderr tail."""
+    run_ranks(lambda rank, init: [
+        sys.executable, "-m", "libdeflate_rsx_tpu_torch.parallel.entry",
+        str(rank), str(n_devices), init, str(timeout / 2)],
+        n_devices, timeout)
 
 
 def _check(ok: bool, what: str) -> None:

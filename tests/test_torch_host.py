@@ -3,7 +3,10 @@ modules, without the native codec) against the JAX package on the CPU:
 the same compressed bytes at every level and format, the same decoded
 bytes and errors, the same streams, and checksums equal to zlib's."""
 
+import ast
+import importlib
 import io
+import pathlib
 import zlib
 
 import pytest
@@ -141,3 +144,119 @@ def test_checksums_equal_zlib(kind):
 def test_public_surface_matches():
     assert set(port.__all__) == set(ref.__all__)
     assert port.errors.DeflateError.__name__ == ref.errors.DeflateError.__name__
+
+
+REF_ROOT = pathlib.Path(ref.__file__).parent
+#: JAX-package modules whose port lives at another path
+MOVED = {"ops.pallas": "ops",
+         "ops.pallas.inflate_tokens": "ops.inflate_tokens",
+         "ops.pallas.inflate_v2": "ops.inflate_v2",
+         "ops.pallas.inflate_static": "ops.inflate_static",
+         "parallel.hostpool": "hostpool"}
+_JIT = (None, "an XLA compile cache, a TPU artifact", "ROADMAP item 17")
+_NATIVE = (None, "the native host tier, which does not build (fault 3.1); "
+           "the port runs the Python host paths", "ROADMAP items 17-18")
+_ASSEMBLE = ("ops.assemble:assemble", "the row assembly, stored fallback "
+             "included, is csrc/assemble_rows.cu", "ROADMAP items 19-21")
+#: the only JAX-package public names without a counterpart of the same
+#: name in the port's module of the same path: (module, name) ->
+#: (the port's counterpart "module:name" or None, why, where the ROADMAP
+#: says so)
+NOT_PORTED = {
+    ("models.greedy_dynamic", "assemble_dynamic"): _ASSEMBLE,
+    ("models.greedy_dynamic", "apply_stored_fallback"): _ASSEMBLE,
+    ("models.greedy_static", "assemble_with_fallback"): _ASSEMBLE,
+    ("ops.encode_v2", "assemble_blocks"): _ASSEMBLE,
+    ("ops.encode_v2", "jit_encoder"): _JIT,
+    ("ops.encode_v2", "jit_encoder_scan"): _JIT,
+    ("ops.encode_dynamic", "jit_analyze_l6"): _JIT,
+    ("ops.encode_dynamic", "jit_analyze"): _JIT,
+    ("ops.encode_dynamic", "jit_emit"): _JIT,
+    ("ops.encode_dynamic", "find_matches_l6"): (
+        "ops.match_l6:find_matches_l6", "the match kernel's dispatcher; "
+        "the plain graph is encode_dynamic.find_matches_l6_plain",
+        "ROADMAP item 22"),
+    ("ops.pallas.inflate_tokens", "steps_for_caps"): (
+        None, "the pass-1 step budget, a TPU artifact", "ROADMAP item 17"),
+    ("ops.resolve", "resolve_batch_jax"): (
+        "ops.resolve:resolve_batch_plain", "the JAX graph in plain "
+        "PyTorch; csrc/resolve.cu runs in its place on the card",
+        "ROADMAP section 2b"),
+    ("parallel.hostpool", "get_pool"): (
+        "hostpool:_get_pool", "private in the port: only pmap uses it",
+        "ROADMAP item 16"),
+    ("native", "get_ext"): _NATIVE,
+    ("native", "get_lib"): _NATIVE,
+    ("native", "dyn_tables_native"): (
+        "ops.dyn_tables:build_tables", "the table builder is "
+        "csrc/dyn_tables.cu", "ROADMAP section 2c"),
+    ("native", "assemble_rows_native"): _ASSEMBLE,
+    ("native.host", "native_available"): _NATIVE,
+    ("native.host", "native_deflate"): _NATIVE,
+    ("native.host", "native_deflate_bits"): _NATIVE,
+    ("native.host", "native_inflate"): _NATIVE,
+    ("native.host", "native_crc32"): _NATIVE,
+    ("native.host", "native_adler32"): _NATIVE,
+    ("native.host", "CInflater"): _NATIVE,
+    ("native.host", "native_resolve_tokens"): (
+        "ops.resolve:resolve_batch", "LZ resolution is csrc/resolve.cu",
+        "ROADMAP section 2c"),
+}
+REF_MODULES = sorted(
+    ".".join(p.relative_to(REF_ROOT).with_suffix("").parts)
+    .removesuffix("__init__").rstrip(".")
+    for p in REF_ROOT.rglob("*.py"))
+
+
+def public_defs(module: str) -> list[str]:
+    """The public functions and classes a JAX-package module defines
+    (read from its source: importing it would import JAX)."""
+    parts = module.split(".") if module else []
+    path = REF_ROOT.joinpath(*parts)
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    tree = ast.parse(path.read_text())
+    return [n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")]
+
+
+def port_module(module: str):
+    """The port's module at the JAX module's path (or where MOVED puts
+    it), or None when the port has no such module."""
+    name = ".".join(filter(None, ["libdeflate_rsx_tpu_torch",
+                                  MOVED.get(module, module)]))
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if not name.startswith(e.name):
+            raise
+        return None
+
+
+def counterpart(spec: str):
+    module, name = spec.split(":")
+    return getattr(importlib.import_module(
+        "libdeflate_rsx_tpu_torch." + module), name)
+
+
+@pytest.mark.parametrize("module", REF_MODULES)
+def test_every_public_name_has_a_counterpart(module):
+    """Every public function and class of every JAX-package module is in
+    the port's module of the same path, or in NOT_PORTED, whose entries
+    all name a reason, a ROADMAP place and, where there is one, a
+    counterpart that exists; no entry of NOT_PORTED is stale."""
+    mod = port_module(module)
+    missing = {n for n in public_defs(module)
+               if mod is None or not hasattr(mod, n)}
+    listed = {n for m, n in NOT_PORTED if m == module}
+    assert missing == listed
+    for n in listed:
+        spec, why, where = NOT_PORTED[module, n]
+        assert why and where.startswith("ROADMAP")
+        assert spec is None or callable(counterpart(spec))
+
+
+def test_surface_table_covers_only_real_modules():
+    assert len(REF_MODULES) == 38 and "" in REF_MODULES
+    assert {m for m, _ in NOT_PORTED} <= set(REF_MODULES)
+    assert set(MOVED) <= set(REF_MODULES)

@@ -60,19 +60,32 @@ def test_import_leaves_jax_out():
 PROBES = ["scripts/pass1_probe.py", "scripts/stream_probe.py",
           "scripts/phase_probe_torch.py", "scripts/resolve_probe.py",
           "scripts/match_probe.py", "scripts/select_probe.py"]
+EXAMPLES = sorted(str(p.relative_to(ROOT))
+                  for p in (ROOT / "examples").glob("torch_*.py"))
 
 
 @pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py",
-                                            "tests/_port_corpus.py"] + PROBES)
+                                            "tests/_port_corpus.py"]
+                         + PROBES + EXAMPLES)
 def test_no_jax_import_in_sources(path):
     text = (ROOT / path).read_text()
     assert not _JAX_IMPORT.search(text), path
 
 
-@pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py"] + PROBES)
+@pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py"] + PROBES
+                         + EXAMPLES)
 def test_no_jax_package_import_in_sources(path):
     text = (ROOT / path).read_text()
     assert not _REF_IMPORT.search(text), path
+
+
+def test_every_jax_example_has_a_port_example():
+    """Each JAX example `examples/<name>.py` has its port beside it,
+    `examples/torch_<name>.py`."""
+    jax_examples = sorted(p.name for p in (ROOT / "examples").glob("*.py")
+                          if not p.name.startswith("torch_"))
+    assert len(jax_examples) == 9
+    assert EXAMPLES == [f"examples/torch_{n}" for n in jax_examples]
 
 
 def test_chip_smoke_drives_only_the_port():

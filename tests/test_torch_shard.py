@@ -14,9 +14,7 @@ compiled once and run for each resolve."""
 import gzip
 import json
 import os
-import subprocess
 import sys
-import time
 import zlib
 
 import pytest
@@ -134,48 +132,14 @@ json.dump(res, open(out, "w"))
 
 def run_ranks(worker: str, tmp, n: int = RANKS) -> list:
     """Run `worker` as n gloo ranks (argv: rank, rendezvous URL, result
-    file, repo root) that meet at a file rendezvous in `tmp`. When a rank
+    file, repo root) through `parallel/entry.run_ranks`: when a rank
     fails or the ranks outlast TIMEOUT, every rank is killed and the
     error shows each rank's exit code and the tail of its stderr.
     Returns the ranks' results."""
-    from libdeflate_rsx_tpu_torch.parallel.multihost import file_rendezvous
-    init = file_rendezvous(str(tmp))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    from libdeflate_rsx_tpu_torch.parallel.entry import run_ranks as run
     outs = [str(tmp / f"rank{r}.json") for r in range(n)]
-    errs = [open(tmp / f"rank{r}.err", "w+") for r in range(n)]
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", worker, str(r), init, outs[r], ROOT],
-        cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=errs[r],
-        text=True) for r in range(n)]
-    deadline = time.monotonic() + TIMEOUT
-    try:
-        while any(p.poll() is None for p in procs) \
-                and time.monotonic() < deadline \
-                and all(p.poll() in (None, 0) for p in procs):
-            time.sleep(0.1)
-        codes = [p.poll() for p in procs]
-        if codes != [0] * n:
-            why = ("a rank failed" if any(c not in (None, 0) for c in codes)
-                   else f"the ranks outlasted {TIMEOUT} s")
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-            tails = []
-            for r, f in enumerate(errs):
-                f.seek(0)
-                tails.append(f"rank {r} (exit {codes[r]}):\n"
-                             f"{f.read()[-3000:]}")
-            raise AssertionError(f"{why}; every rank killed\n"
-                                 + "\n".join(tails))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in errs:
-            f.close()
+    run(lambda r, init: [sys.executable, "-c", worker, str(r), init,
+                         outs[r], ROOT], n, TIMEOUT)
     return [json.load(open(o)) for o in outs]
 
 
