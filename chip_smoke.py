@@ -6,9 +6,9 @@ Usage: python3 chip_smoke.py      (from the root of a checkout; one card)
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
-2. build: the eight CUDA kernel sources (pass 1, inflate_v2,
+2. build: the nine CUDA kernel sources (pass 1, inflate_v2,
    inflate_static, dyn_tables, assemble_rows, resolve, match_l6,
-   select), from
+   select, emit), from
    csrc/ with one nvcc each, all started together (build/kernels/);
 3. pass 1 (the segment route's kernels) against its plain PyTorch
    version, both on the card, at the 64 KiB out_cap: zlib streams of
@@ -22,7 +22,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    in 1 MiB items, every output checked with zlib; the match kernel, the
    table kernel and the assembly kernel must each have launched once a
    device pass (their records' launches), and so must the select
-   kernel (run extension, lazy demotion, selection and histograms);
+   kernel (run extension, lazy demotion, selection and histograms) and
+   the emit kernel (the tokens coded and bit-packed into rows);
    the first N_CPU_ITEMS items
    again with device="cpu" (the match finder's plain version), equal
    bytes;
@@ -66,8 +67,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    use_device=True) over the corpus in 1 MiB items (64 KiB blocks),
    every output checked with zlib, ratio and wall per level (two runs);
    the first two items again with device="cpu", equal bytes; at L1 and
-   L4 the assembly and select kernels launched once a device pass, at
-   L4 the table kernel too;
+   L4 the assembly, select and emit kernels launched once a device
+   pass, at L4 the table kernel too;
 14. their two-pass decode: BatchDecompressor(use_device=True,
    resolve="device") on the L1 and L4 items and on the level-0 streams
    of the first 256 64-KiB slices, byte-exact; every host fallback is
@@ -167,12 +168,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    together, each with its own timeout, every one exiting 0; (c)
    utils.profiling.device_trace around one L6 compress_batch of a 1 MiB
    item inside trace("l6_item"): the Chrome trace file names the span
-   and a match- or select-kernel launch.
+   and a match- or select-kernel launch;
+28. the emit kernel (every lane's token coded through the block's tables
+   or the static codes, and bit-packed into rows) against its plain
+   version on the card: the L6 pass's 259 blocks, the L4 pass's, one L1
+   per-item pass's (static mode), zeros and random blocks at L6 and L1,
+   and the seeded trap and overflowing arrays of tests/_port_corpus.py
+   (emit_cases, emit_random_cases) in both modes: rows (every padding
+   byte), byte_off, row_bit0 and end_bits equal; then timed on the L6
+   pass (the record) beside the plain version on the card, and on the
+   L4 and L1 passes; the bound counts what this run's tokens need: every
+   lane's sel flag, the lit flag of each lane not sel, the byte of each
+   literal, int64 (ml, dist) of each sel lane, and each row's buffer and
+   two int64 out.
 
 Phases 13-21 drive the level 0-5 tiers, the checksums, the memory
 budget and the sharded paths, the port's modules with no kernel of
 their own; the kernels' launches there are logged and asserted, and
-their records stay those of phases 3-12 and 22-26.
+their records stay those of phases 3-12, 22-26 and 28.
 Each kernel's record (ms, plain_ms, bound_ms) is taken on its path's
 own inputs, where every input and output byte is needed: the bound is
 those bytes over the card's memory rate. The last two lines are the
@@ -217,7 +230,7 @@ N_SMALL = (1, 7)        # small-batch path batch sizes
 N_STATIC = 128          # Z_FIXED slices through inflate_device_static
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM device memory, 3.35 TB/s
 KERNELS = ("inflate_tokens", "inflate_v2", "inflate_static", "dyn_tables",
-           "assemble_rows", "resolve", "match_l6", "select")
+           "assemble_rows", "resolve", "match_l6", "select", "emit")
 TIER_LEVELS = (0, 1, 4)     # the stored, static and dynamic compress tiers
 N_CPU_ITEMS = 2             # items also compressed with device="cpu"
 BUDGET_OVER = 1.2           # phases 18, 20: one-pass need / card memory
@@ -881,13 +894,15 @@ def phase_compress_tiers(data: bytes):
     from libdeflate_rsx_tpu_torch import BatchCompressor
     from libdeflate_rsx_tpu_torch.ops import assemble as asm
     from libdeflate_rsx_tpu_torch.ops import dyn_tables as dtab
+    from libdeflate_rsx_tpu_torch.ops import emit as em
     from libdeflate_rsx_tpu_torch.ops import select as sl
 
     items = [data[i:i + ITEM] for i in range(0, len(data), ITEM)]
     comp = {}
     for level in TIER_LEVELS:
         bc = BatchCompressor(level=level, use_device=True, device="cuda")
-        dtab.LAUNCHES = asm.LAUNCHES = sl.LAUNCHES = 0  # this tier starts here
+        # this tier starts here
+        dtab.LAUNCHES = asm.LAUNCHES = sl.LAUNCHES = em.LAUNCHES = 0
         walls = []
         with counting_phases() as phases:
             for _ in range(2):
@@ -896,11 +911,11 @@ def phase_compress_tiers(data: bytes):
                 out = bc.compress_batch(items)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
-        launches = (dtab.LAUNCHES, asm.LAUNCHES, sl.LAUNCHES)
+        launches = (dtab.LAUNCHES, asm.LAUNCHES, sl.LAUNCHES, em.LAUNCHES)
         passes = phases["assemble"]
         assert (passes > 0) == (level >= 1), (level, passes)
-        assert launches == (passes if level >= 4 else 0, passes, passes), \
-            (level, launches, passes)
+        assert launches == (passes if level >= 4 else 0, passes, passes,
+                            passes), (level, launches, passes)
         for i, (it_, c) in enumerate(zip(items, out)):
             assert zlib.decompress(c, -15) == it_, f"L{level} item {i}"
         t0 = time.perf_counter()
@@ -914,7 +929,8 @@ def phase_compress_tiers(data: bytes):
             f"again {walls[1]:.3f} s; the first {N_CPU_ITEMS} items on the "
             f"CPU equal ({cpu_s:.2f} s); dyn_tables launches {launches[0]}, "
             f"assembly launches {launches[1]}, select launches "
-            f"{launches[2]}, device passes {passes} (two runs)")
+            f"{launches[2]}, emit launches {launches[3]}, device passes "
+            f"{passes} (two runs)")
         comp[level] = out
     return items, comp
 
@@ -1989,6 +2005,102 @@ def phase_select_kernel(items, card: str):
                   plain_ms, nbytes)
 
 
+def emit_vs_plain(lanes, tables, label: str) -> int:
+    """The emit kernel and its plain version on the card on the same
+    inputs: rows (every padding byte), byte_off, row_bit0 and end_bits
+    equal. Returns the max abs err."""
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import emit as em
+
+    got = em.emit(*lanes, *tables)
+    want = em.emit_plain(*lanes, *tables)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    assert all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want)), \
+        f"emit {label}: kernel != plain (max abs err {err})"
+    return err
+
+
+def emit_bytes(lanes, tables) -> int:
+    """Bytes the emit must move once on these inputs, counted from their
+    tokens: in, every lane's sel flag, the lit flag of each lane not sel,
+    the byte of each literal (lit and not sel) and int64 (ml, dist) of
+    each sel lane (a match's length and the offset that rides the next
+    lane), per block the tables and start bits (dynamic mode); out, each
+    row's buffer and int64 byte_off and row_bit0, and end_bits."""
+    _, _, _, sel, lit, s = lanes
+    b = sel.shape[0]
+    n_sel = int(sel.sum())
+    n_lit = int((lit & ~sel).sum())
+    row_out = 64 if tables else 48
+    return b * s + (b * s - n_sel) + n_lit + 16 * n_sel \
+        + b * (s // 32) * (row_out + 1 + 16) \
+        + b * ((288 + 30) * 4 + 8 if tables else 0) + b * 8
+
+
+def phase_emit_kernel(items, card: str):
+    """Phase 28: the emit kernel against its plain version on the card,
+    on the L6 pass's 259 blocks, the L4 pass's and one L1 per-item pass's
+    (static mode), zeros and random blocks at L6 and L1, and the seeded
+    trap and overflowing arrays of tests/_port_corpus.py in both modes;
+    then its record, timed on the L6 pass, and its times on the L4 and L1
+    passes. Returns the record."""
+    import numpy as np
+    import torch
+    from _port_corpus import emit_cases, emit_pass_inputs, emit_random_cases
+    from libdeflate_rsx_tpu_torch.ops import emit as em
+
+    main = emit_pass_inputs(items, 6, SLICE, "cuda")
+    errs = [emit_vs_plain(*main, "the L6 pass")]
+    l4 = emit_pass_inputs(items, 4, SLICE, "cuda")
+    errs.append(emit_vs_plain(*l4, "the L4 pass"))
+    l1 = emit_pass_inputs(items[:1], 1, SLICE, "cuda")
+    errs.append(emit_vs_plain(*l1, "an L1 pass"))
+    rng = np.random.default_rng(28)
+    edge = [bytes(2 * SLICE), rng.integers(0, 256, 2 * SLICE - 999,
+                                           dtype=np.uint8).tobytes()]
+    for level in (6, 1):
+        errs.append(emit_vs_plain(
+            *emit_pass_inputs(edge, level, SLICE, "cuda"),
+            f"zeros and random blocks at L{level}"))
+    labels = []
+    for make in (emit_cases, emit_random_cases):
+        case = make()
+        labels += case[0]
+        lanes = (*(torch.from_numpy(x).cuda() for x in case[1:6]),
+                 case[2].shape[1])
+        tables = tuple(torch.from_numpy(x).cuda() for x in case[6:])
+        errs.append(emit_vs_plain(lanes, tables, "the edge arrays"))
+        errs.append(emit_vs_plain(lanes, (), "the edge arrays, static"))
+    b = main[0][1].shape[0]
+    log(f"emit vs plain: equal on the L6 pass's {b} blocks, the L4 pass's "
+        f"{l4[0][1].shape[0]} and an L1 pass's {l1[0][1].shape[0]}, 2 "
+        f"zeros and 2 random blocks at L6 and L1, and {len(labels)} edge "
+        f"and overflowing arrays in both modes ({', '.join(labels)}), max "
+        f"abs err {max(errs)}")
+    for label, (lanes, tables) in (
+            (f"an L1 pass's {l1[0][1].shape[0]} blocks", l1),
+            (f"the L4 pass's {l4[0][1].shape[0]} blocks", l4)):
+        t = time_cuda(lambda: em.emit(*lanes, *tables), KERNEL_REPS)
+        tp = time_cuda(lambda: em.emit_plain(*lanes, *tables), KERNEL_REPS)
+        log(f"emit on {label}: kernel {t:.4f} ms, plain version {tp:.3f} "
+            f"ms (CUDA events, {KERNEL_REPS} calls each); bound "
+            f"{emit_bytes(lanes, tables) / HBM_BYTES_PER_MS:.6f} ms [{card}]")
+    ms = time_cuda(lambda: em.emit(*main[0], *main[1]), KERNEL_REPS)
+    plain_ms = time_cuda(lambda: em.emit_plain(*main[0], *main[1]),
+                         KERNEL_REPS)
+    nbytes = emit_bytes(*main)
+    sel = main[0][3]
+    log(f"emit on the L6 pass's {b} blocks: kernel {ms:.3f} ms, plain "
+        f"version {plain_ms:.3f} ms on the card (CUDA events, "
+        f"{KERNEL_REPS} calls each); {int(sel.sum())} of {sel.numel()} "
+        f"lanes sel [{card}]")
+    return record("emit", "ops/encode_dynamic.py:89", max(errs), ms,
+                  plain_ms, nbytes)
+
+
 def phase_resolve_tokens(slices, chunks, rec_rs: dict, card: str) -> None:
     """Phase 27a: ops.resolve.resolve_tokens_device on pass 1's token
     columns of the 256 zlib-6 slices at the 64 KiB out_cap, on the card:
@@ -2130,6 +2242,7 @@ def main() -> int:
     t_start = time.perf_counter()
     from libdeflate_rsx_tpu_torch.ops import assemble as asm
     from libdeflate_rsx_tpu_torch.ops import dyn_tables as dtab
+    from libdeflate_rsx_tpu_torch.ops import emit as em
     from libdeflate_rsx_tpu_torch.ops import inflate_static as st
     from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
     from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
@@ -2144,20 +2257,22 @@ def main() -> int:
 
     it.LAUNCHES = rs.LAUNCHES = 0         # the main path starts here
     dtab.LAUNCHES = asm.LAUNCHES = ml6.LAUNCHES = sl.LAUNCHES = 0
+    em.LAUNCHES = 0
     with counting_phases() as phases:
         items, comp = phase_compress(data)
     passes = phases["assemble"]
     launches_tail = (dtab.LAUNCHES, asm.LAUNCHES)
     launches_ml6, launches_sl = ml6.LAUNCHES, sl.LAUNCHES
+    launches_em = em.LAUNCHES
     assert passes > 0 and launches_tail == (passes, passes) \
-        and launches_ml6 == launches_sl == passes, \
+        and launches_ml6 == launches_sl == launches_em == passes, \
         f"the L6 compress launched match_l6 {launches_ml6} times, " \
-        f"select {launches_sl} times, dyn_tables/assembly " \
-        f"{launches_tail} in {passes} passes"
+        f"select {launches_sl} times, emit {launches_em} times, " \
+        f"dyn_tables/assembly {launches_tail} in {passes} passes"
     log(f"match_l6 launches on the L6 compress: {launches_ml6}; select "
-        f"launches: {launches_sl}; dyn_tables launches: "
-        f"{launches_tail[0]}; assembly launches: {launches_tail[1]} "
-        f"({passes} device passes)")
+        f"launches: {launches_sl}; emit launches: {launches_em}; "
+        f"dyn_tables launches: {launches_tail[0]}; assembly launches: "
+        f"{launches_tail[1]} ({passes} device passes)")
     phase_compress_cpu(items, comp)
     comp_l6 = comp
     counts = route_counts()
@@ -2259,6 +2374,11 @@ def main() -> int:
     phase_trace(data, card)
     log(f"phase 27 (resolve_tokens_device, the examples, the trace): "
         f"{time.perf_counter() - t_tail:.1f} s")
+    t_tail = time.perf_counter()
+    rec_em = phase_emit_kernel(items, card)
+    rec_em["launches"] = launches_em
+    log(f"phase 28 (the emit kernel): "
+        f"{time.perf_counter() - t_tail:.1f} s")
     assert "jax" not in sys.modules, "the port imported jax"
     assert not any(m.split(".")[0] == "libdeflate_rsx_tpu"
                    for m in sys.modules), "the port imported the JAX package"
@@ -2266,7 +2386,7 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     print(json.dumps({"kernels": [rec, rec_v2, rec_st, rec_dt, rec_asm,
-                                  rec_rs, rec_ml6, rec_sl]}))
+                                  rec_rs, rec_ml6, rec_sl, rec_em]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -51,6 +51,25 @@ def split_blocks_hist(data: bytes, block_size: int):
     return arr, valid, hist_start, finals, num
 
 
+def emit_inputs(arr_t, valid_t, finals_t, block_size, hist_t=None):
+    """Block rows on their device analyzed and given their tables, the
+    pass up to its emit: (lanes (data, ml, dist, sel, lit), tables
+    (ll_tabs, of_tabs, hdr_bits), hdr, histograms (ll (B, 288), of
+    (B, 30))). With hist_t, the blocks carry a history prefix and take
+    the L6 analysis, and data is the rows' payload columns."""
+    if hist_t is None:
+        analyzed = analyze_block(arr_t, valid_t, block_size)
+    else:
+        analyzed = analyze_block_l6(arr_t, valid_t, hist_t, block_size)
+        arr_t = arr_t[:, HIST:]
+    ml, dist, sel, lit, llh, ofh = analyzed
+    _phase_end("analyze")
+    ll_tabs, of_tabs, hdr, hdr_bits = build_tables(llh, ofh, finals_t)
+    _phase_end("tables")
+    return (arr_t, ml, dist, sel, lit), (ll_tabs, of_tabs, hdr_bits), hdr, \
+        (llh, ofh)
+
+
 def dynamic_pass(arr, valid, finals, block_size, device, hist_start=None):
     """Block rows analyzed, given their tables and emitted on `device`
     in one pass. With hist_start, the blocks carry a history prefix and
@@ -62,23 +81,16 @@ def dynamic_pass(arr, valid, finals, block_size, device, hist_start=None):
     hist_t = None if hist_start is None else \
         torch.from_numpy(hist_start).to(device)
     _phase_end("h2d")
-    if hist_t is None:
-        analyzed = analyze_block(arr_t, valid_t, block_size)
-        raw_len = valid_t
-    else:
-        analyzed = analyze_block_l6(arr_t, valid_t, hist_t, block_size)
-        arr_t = arr_t[:, HIST:]
-        raw_len = valid_t - HIST
-    ml, dist, sel, lit, llh, ofh = analyzed
-    _phase_end("analyze")
-    ll_tabs, of_tabs, hdr, hdr_bits = build_tables(llh, ofh, finals_t)
-    _phase_end("tables")
-    rows, byte_off, row_bit0, end_bits = emit_pack(
-        arr_t, ml, dist, sel, lit, ll_tabs, of_tabs, hdr_bits, block_size)
+    lanes, tables, hdr, hists = emit_inputs(arr_t, valid_t, finals_t,
+                                            block_size, hist_t)
+    ll_tabs, of_tabs, hdr_bits = tables
+    rows, byte_off, row_bit0, end_bits = emit_pack(*lanes, *tables,
+                                                   block_size)
     _phase_end("emit")
+    raw_len = valid_t if hist_t is None else valid_t - HIST
     return Inputs(rows, byte_off, row_bit0, end_bits, hdr, hdr_bits,
-                  ll_tabs[:, 256], finals_t, arr_t, raw_len,
-                  2 * block_size + 1024), (llh, ofh)
+                  ll_tabs[:, 256], finals_t, lanes[0], raw_len,
+                  2 * block_size + 1024), hists
 
 
 def _encode_blocks(arr, valid, finals, block_size, device,

@@ -15,7 +15,7 @@ of blocks:
                     builder: the plain version of ops/dyn_tables.py's
                     kernel, which runs this step on the card);
   emit_pack         tokens coded through the tables and bit-packed into
-                    row buffers (device).
+                    row buffers (device: the emit kernel, ops/emit.py).
 
 The JAX functions take one block and are vmapped; these take the batch
 dimension first. uint32 values are held in int64.
@@ -296,7 +296,20 @@ def emit_pack(data_padded: torch.Tensor, ml: torch.Tensor,
     bit-reversed for LSB-first emission). start_bits (B,): bit length of
     each block's serialized header. A match's offset part rides the next
     (always covered) lane. Returns pack_rows' (rows, byte_off, row_bit0,
-    end_bits)."""
+    end_bits). CUDA tensors launch the emit kernel (ops/emit.py), CPU
+    tensors run emit_pack_plain."""
+    from .emit import emit           # emit imports this module
+
+    return emit(data_padded, ml, dist, sel, lit, block_size, ll_tab, of_tab,
+                start_bits)
+
+
+def emit_pack_plain(data_padded: torch.Tensor, ml: torch.Tensor,
+                    dist: torch.Tensor, sel: torch.Tensor, lit: torch.Tensor,
+                    ll_tab: torch.Tensor, of_tab: torch.Tensor,
+                    start_bits: torch.Tensor, block_size: int):
+    """emit_pack in plain PyTorch: the dynamic mode of the emit kernel's
+    plain version."""
     s = block_size
     byte = data_padded[:, :s].to(torch.int64)
     ll_tab = ll_tab.to(torch.int64)

@@ -243,30 +243,54 @@ def pack_rows(val: torch.Tensor, nb: torch.Tensor, start_bits: torch.Tensor,
     return rows, byte_off, row_bit0, start_bits.to(torch.int64) + ends[:, -1]
 
 
-def encode_rows_static(data_padded: torch.Tensor, valid_len: torch.Tensor,
-                       is_final: torch.Tensor, block_size: int):
-    """Level-1 encoder for a batch of padded blocks: matches, greedy
-    tokens, static codes and bit packing.
-
-    data_padded (B, block_size + BLOCK_PAD) uint8, valid_len and is_final
-    (B,). Returns (rows (B, R, ROW_OUT + 1) uint8 globally bit-aligned
-    row buffers, byte_off (B, R), rowbits (B, R), total_bits (B,),
-    nbytes (B,))."""
-    from .select import select       # select imports this module
-
+def emit_static_plain(data_padded: torch.Tensor, ml: torch.Tensor,
+                      dist: torch.Tensor, sel: torch.Tensor,
+                      lit: torch.Tensor, block_size: int):
+    """The level-1 encoder's coding and packing in plain PyTorch (the
+    static mode of the emit kernel's plain version): static literal codes
+    and fused match tokens, packed into ROW_OUT rows after the 3-bit
+    block header. Returns pack_rows' (rows, byte_off, row_bit0,
+    end_bits)."""
     s = block_size
-    valid_len = valid_len.to(torch.int64)
-    ml, dist = find_matches_v2(data_padded, valid_len, s)
-    ml, _, sel, lit = select(ml, dist, valid_len)
-
     lv, ln = literal_code(data_padded[:, :s])
     mv, mn = match_token(ml.clamp(min=MIN_MATCH), dist.clamp(1, WINDOW_SIZE))
     val = torch.where(sel, mv, torch.where(lit, lv, 0))
     nb = torch.where(sel, mn, torch.where(lit, ln, 0))
 
     # the 3-bit block header precedes the body
-    start = torch.full_like(valid_len, 3)
-    rows, byte_off, row_bit0, end_bits = pack_rows(val, nb, start, ROW_OUT)
+    start = torch.full((ml.shape[0],), 3, dtype=torch.int64,
+                       device=ml.device)
+    return pack_rows(val, nb, start, ROW_OUT)
+
+
+def static_tokens(data_padded: torch.Tensor, valid_len: torch.Tensor,
+                  block_size: int):
+    """The level-1 tier's tokens of a batch of padded blocks, its emit's
+    lanes with data_padded: (ml, dist, sel, lit) from the match finder
+    and the select kernel on the card."""
+    from .select import select       # select imports this module
+
+    valid_len = valid_len.to(torch.int64)
+    ml, dist = find_matches_v2(data_padded, valid_len, block_size)
+    ml, _, sel, lit = select(ml, dist, valid_len)
+    return ml, dist, sel, lit
+
+
+def encode_rows_static(data_padded: torch.Tensor, valid_len: torch.Tensor,
+                       is_final: torch.Tensor, block_size: int):
+    """Level-1 encoder for a batch of padded blocks: matches, greedy
+    tokens (the select kernel on the card), static codes and bit packing
+    (the emit kernel on the card, ops/emit.py).
+
+    data_padded (B, block_size + BLOCK_PAD) uint8, valid_len and is_final
+    (B,). Returns (rows (B, R, ROW_OUT + 1) uint8 globally bit-aligned
+    row buffers, byte_off (B, R), rowbits (B, R), total_bits (B,),
+    nbytes (B,))."""
+    from .emit import emit           # emit imports this module
+
+    rows, byte_off, row_bit0, end_bits = emit(
+        data_padded, *static_tokens(data_padded, valid_len, block_size),
+        block_size)
     rowbits = torch.diff(torch.cat([row_bit0, end_bits[:, None]], dim=1),
                          dim=1)
     total_bits = end_bits + 7                   # body + EOB (7 zero bits)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Phase breakdown of the PyTorch port's main path on one CUDA card.
 
-Usage: python3 scripts/phase_probe_torch.py [--out FILE] [--analyze-only]
+Usage: python3 scripts/phase_probe_torch.py [--out FILE]
+           [--analyze-only | --compress-only]
 
 Times, with the card synchronised around each phase: BatchCompressor
 cold and warm; the encode phases of a BatchCompressor run at levels 6
@@ -22,7 +23,11 @@ card) and the select kernel (ops/select.py: run extension, lazy
 demotion, selection and the histograms), and analyze_block_l6 whole
 with each finder; beside them the select kernel's plain version whole
 and in its three parts (extend_runs, select_tokens_l6, the histograms);
-with --analyze-only, only that. Each line is printed,
+with --analyze-only, only that. With --compress-only, only the
+compress: the level-6 walls and phases, the level-1 and level-4 warm
+walls and phases, and the compress's busy share, so that two trees'
+copies of this script can be run in turns in one call to the card.
+Each line is printed,
 and copied to FILE when given. Needs one CUDA card; the corpus and the
 card and build phases are chip_smoke.py's.
 """
@@ -157,8 +162,11 @@ def busy_share(name, fn, say):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every line to this file")
-    ap.add_argument("--analyze-only", action="store_true",
-                    help="only the L6 analyze split")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--analyze-only", action="store_true",
+                      help="only the L6 analyze split")
+    mode.add_argument("--compress-only", action="store_true",
+                      help="only the compress walls, phases and busy share")
     args = ap.parse_args()
     with contextlib.ExitStack() as stack:
         out = stack.enter_context(open(args.out, "w")) if args.out else None
@@ -168,10 +176,11 @@ def main() -> int:
             if out is not None:
                 print(msg, file=out, flush=True)
 
-        return probe(say, args.analyze_only)
+        return probe(say, args.analyze_only, args.compress_only)
 
 
-def probe(say, analyze_only: bool = False) -> int:
+def probe(say, analyze_only: bool = False,
+          compress_only: bool = False) -> int:
     sys.path.insert(0, ROOT)
     import torch
 
@@ -188,7 +197,8 @@ def probe(say, analyze_only: bool = False) -> int:
     cs.phase_build()
     data = cs.corpus()
     items = [data[i:i + cs.ITEM] for i in range(0, len(data), cs.ITEM)]
-    analyze_split(items, say)
+    if not compress_only:
+        analyze_split(items, say)
     if analyze_only:
         return 0
 
@@ -203,7 +213,14 @@ def probe(say, analyze_only: bool = False) -> int:
         tier = BatchCompressor(level=level, use_device=True, device="cuda")
         tier.compress_batch(items)                       # warm
         for _ in range(2):
+            t0 = time.perf_counter()
+            tier.compress_batch(items)
+            say(f"compress_batch L{level} warm {lap(t0)[0]:.1f} ms")
+        for _ in range(2):
             encode_phases(tier, items, say)
+    if compress_only:
+        busy_share("compress", lambda: bc.compress_batch(items), say)
+        return 0
 
     chunks = [data[i * BLOCK:(i + 1) * BLOCK] for i in range(cs.N_SLICES)]
     streams = [cs.raw_z(c) for c in chunks]

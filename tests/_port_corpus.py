@@ -805,3 +805,135 @@ def select_tile_cases(start: int = L6_HIST, seed: int = 17,
     return (labels, np.stack([o[1] for o in out]),
             np.stack([o[2] for o in out]),
             np.array([o[3] for o in out], np.int32), data)
+
+
+# ----------------------------------------------------------- emit arrays
+EMIT_TILE = 2048        # lanes a tile of csrc/emit.cu takes (64 rows)
+EMIT_WARP = 256         # lanes a warp of it takes (8 a thread)
+EMIT_S = 3 * EMIT_TILE + 96     # three whole tiles and a part
+
+
+def _emit_tables(rng, b, max_len=15):
+    """Random litlen and offset tables, int32 `code | len << 16`, lengths
+    1..max_len and codes below 2^len."""
+    import numpy as np
+
+    out = []
+    for n in (288, 30):
+        ln = rng.integers(1, max_len + 1, (b, n))
+        code = rng.integers(0, 1 << 16, (b, n)) & ((1 << ln) - 1)
+        out.append((code | (ln << 16)).astype(np.int32))
+    return out
+
+
+def emit_cases(seed: int = 19):
+    """Seeded emit inputs that hit the emit kernel's traps, as the select
+    kernel gives them (a match's next ml - 1 lanes inactive, every other
+    lane a literal up to valid_len), in blocks of EMIT_S lanes: (labels,
+    data (B, s + L6_ROW_PAD) uint8, ml (B, s) int64, dist (B, s) int64,
+    sel (B, s) bool, lit (B, s) bool, ll_tab (B, 288) int32, of_tab (B,
+    30) int32, start_bits (B,) int64). Each block starts at another bit
+    (0, 1, 3, 5, 7, 31, 77, and past a byte and a word boundary)."""
+    import numpy as np
+
+    s = EMIT_S
+    rng = np.random.default_rng(seed)
+    out = []
+
+    def add(label, starts, valid=s, ml_at=None, dist_at=None):
+        # greedy tokens: a match at each of `starts` (its length from
+        # ml_at, else 4..40), literals between them, nothing past valid
+        ml = np.zeros(s, np.int64)
+        dist = rng.integers(1, 32769, s).astype(np.int64)
+        sel = np.zeros(s, bool)
+        lit = np.zeros(s, bool)
+        p = 0
+        starts = sorted(set(starts))
+        for at in starts + [valid]:
+            if at < p:                  # inside the match before it
+                continue
+            lit[p:min(at, valid)] = True
+            if at >= valid:
+                break
+            ln = int(rng.integers(4, 41)) if ml_at is None else ml_at(at)
+            ml[at] = ln
+            if dist_at is not None:
+                dist[at] = dist_at(at)
+            sel[at] = True
+            p = at + ln
+        ml[~sel] = rng.integers(0, 9, int((~sel).sum()))
+        out.append((label, ml, dist, sel, lit))
+
+    add("a match on each row's last lane", range(31, s, 64),
+        ml_at=lambda at: 4)
+    add("a match on a thread's last lane inside a row", range(15, s, 48),
+        ml_at=lambda at: 4)
+    add("a match on each warp's and tile's last lane and the block's last"
+        " lane", [*range(EMIT_WARP - 1, s, EMIT_WARP), s - 1],
+        ml_at=lambda at: 4 if at < s - 1 else 1)
+    add("literals only, long codes", [])
+    add("matches of 257 and 258 at distances 24,577 and 32,768",
+        range(5, s - 300, 263), ml_at=lambda at: 257 + at % 2,
+        dist_at=lambda at: (24577, 32768)[at % 2])
+    add("inactive lanes past valid_len", rng.choice(2000, 60, False),
+        valid=2000 + 13)
+    add("no tokens", [], valid=0)
+    add("random matches", rng.choice(s - 300, 400, False))
+    add("random matches, a short block", rng.choice(s - 300, 400, False),
+        valid=s - 101)
+    b = len(out)
+    ll_tab, of_tab = _emit_tables(rng, b)
+    long_ll, long_of = _emit_tables(rng, 1, max_len=15)
+    long_ll[:] = (long_ll & 0xFFFF) | (15 << 16)
+    ll_tab[3], of_tab[3] = long_ll[0], long_of[0]
+    data = rng.integers(0, 256, (b, s + L6_ROW_PAD), dtype=np.uint8)
+    start = np.array([0, 1, 3, 7, 31, 77, 1029, 65538, 5], np.int64)[:b]
+    return ([o[0] for o in out], data,
+            *(np.stack([o[k] for o in out]) for k in range(1, 5)),
+            ll_tab, of_tab, start)
+
+
+def emit_random_cases(seed: int = 23, s: int = EMIT_S):
+    """Random emit inputs that no selection gives: dense sel and lit
+    lanes (a match's offset part riding onto the next lane's own token),
+    any length and distance, and random tables with codes of up to 16
+    bits and lengths 0..15, so that rows overflow their frames in both
+    modes; blocks start at bits 0, 3, 31 and 77. The same tuple as
+    emit_cases."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    b = 4
+    sel = rng.random((b, s)) < 0.6
+    lit = rng.random((b, s)) < 0.5
+    ml = rng.integers(0, 259, (b, s)).astype(np.int64)
+    dist = rng.integers(0, 32769, (b, s)).astype(np.int64)
+    tabs = []
+    for n in (288, 30):
+        ln = rng.integers(0, 16, (b, n))
+        tabs.append((rng.integers(0, 1 << 16, (b, n)) | (ln << 16))
+                    .astype(np.int32))
+    data = rng.integers(0, 256, (b, s + L6_ROW_PAD), dtype=np.uint8)
+    return ([f"random overflowing rows {i}" for i in range(b)], data, ml,
+            dist, sel, lit, *tabs, np.array([0, 3, 31, 77], np.int64))
+
+
+def emit_pass_inputs(datas, level: int, block: int, device):
+    """The emit's inputs of one compress pass over these items on
+    `device`, as the encode flows form them: at level 1 (the static mode;
+    give one item, the tier's pass) ((data, ml, dist, sel, lit, block),
+    ()), at 4 or 6 also the tables ((ll_tab, of_tab, hdr_bits)); the L6
+    data is its rows' payload columns."""
+    import torch
+    from libdeflate_rsx_tpu_torch.models import greedy_dynamic as gd
+    from libdeflate_rsx_tpu_torch.ops.encode_v2 import static_tokens
+
+    _, arr, valid, hist, finals = gd.split_many(datas, block, level >= 6)
+    arr, valid, finals = (torch.from_numpy(x).to(device)
+                          for x in (arr, valid, finals))
+    if level < 4:
+        return (arr, *static_tokens(arr, valid, block), block), ()
+    lanes, tables, _, _ = gd.emit_inputs(
+        arr, valid, finals, block,
+        None if hist is None else torch.from_numpy(hist).to(device))
+    return (*lanes, block), tables

@@ -1,5 +1,5 @@
 """The port on a CUDA card: the pass-1, inflate_v2, inflate_static,
-dyn_tables, assembly, resolve, match_l6 and select kernels against
+dyn_tables, assembly, resolve, match_l6, select and emit kernels against
 their plain PyTorch versions on the card, the slice through the
 kernels, the level 0-6 compress tiers (card bytes equal to CPU bytes,
 decoded through the kernels) and the device checksums under TF32 and
@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from _port_corpus import (RESOLVE_CASES, edge_cases, edge_rows, l6_windows,
+from _port_corpus import (RESOLVE_CASES, edge_cases, edge_rows, emit_cases,
+                          emit_pass_inputs, emit_random_cases, l6_windows,
                           make_corpus, mutated_streams, select_cases,
                           select_tile_cases)
 
@@ -455,7 +456,7 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
     """BatchCompressor at levels 1, 4 and 6 on the card: the CPU's bytes,
     with one assembly launch a pass and, at levels 4 and 6, one table
     launch a pass, at level 6 one match_l6 launch a pass, and one select
-    launch a pass at every level; what the flow copies off the card is
+    and one emit launch a pass at every level; what the flow copies off the card is
     the joined streams (1-D uint8) and the blocks' byte counts and sizes
     ((2, B) int64), no histogram, table or row buffer."""
     from libdeflate_rsx_tpu_torch import BatchCompressor
@@ -463,6 +464,7 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
     from libdeflate_rsx_tpu_torch.ops import assemble as asm
     from libdeflate_rsx_tpu_torch.ops import dyn_tables as dt
     from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+    from libdeflate_rsx_tpu_torch.ops import emit as em
     from libdeflate_rsx_tpu_torch.ops import select as sl
 
     phases = []
@@ -477,7 +479,7 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
             return _orig(self, *a, **k)
         monkeypatch.setattr(torch.Tensor, name, spy)
     tables, places, matches = dt.LAUNCHES, asm.LAUNCHES, ml6.LAUNCHES
-    selects = sl.LAUNCHES
+    selects, emits = sl.LAUNCHES, em.LAUNCHES
     gpu = BatchCompressor(level=level, use_device=True,
                           device=card).compress_batch(TIER_DATAS)
     monkeypatch.undo()
@@ -490,6 +492,7 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
     assert dt.LAUNCHES == tables + (passes if level >= 4 else 0)
     assert ml6.LAUNCHES == matches + (passes if level >= 6 else 0)
     assert sl.LAUNCHES == selects + passes
+    assert em.LAUNCHES == emits + passes
     assert phases.count("tables") == (passes if level >= 4 else 0)
     cpu = BatchCompressor(level=level, use_device=True,
                           device="cpu").compress_batch(TIER_DATAS)
@@ -780,3 +783,119 @@ def test_select_kernel_empty_batch_and_guards(card):
         sl.select(one.int(), one, valid, rows, l6=True)
     with pytest.raises(ValueError):
         sl.select(one, one, valid, rows[:, :s - 1], l6=True)
+
+
+def _emit_equal(data, ml, dist, sel, lit, s, *tables):
+    """The emit kernel (one launch) against its plain version on the same
+    card tensors: every output equal, every padding byte of the rows
+    included. tables: (ll_tab, of_tab, start_bits) for the dynamic mode,
+    none for the static one."""
+    from libdeflate_rsx_tpu_torch.ops import emit as em
+
+    before = em.LAUNCHES
+    got = em.emit(data, ml, dist, sel, lit, s, *tables)
+    assert em.LAUNCHES == before + (ml.shape[0] > 0)
+    want = em.emit_plain(data, ml, dist, sel, lit, s, *tables)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want, strict=True):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert g.shape == w.shape and torch.equal(g, w)
+    return got
+
+
+def _emit_arrays(case, card):
+    """A case of tests/_port_corpus.emit_cases or emit_random_cases on the
+    card: (data, ml, dist, sel, lit, s) and (ll_tab, of_tab, start_bits)."""
+    _, data, ml, dist, sel, lit, ll, of, start = case
+    lanes = tuple(torch.from_numpy(x).to(card)
+                  for x in (data, ml, dist, sel, lit))
+    return (*lanes, ml.shape[1]), tuple(torch.from_numpy(x).to(card)
+                                        for x in (ll, of, start))
+
+
+@pytest.mark.parametrize("make", [emit_cases, emit_random_cases])
+def test_emit_kernel_equals_plain_on_edge_and_overflowing_rows(card, make):
+    """The seeded trap arrays (matches on a row's, a tile's and the
+    block's last lane, rows filled to their frame, the longest lengths
+    and distances, inactive lanes, no tokens, blocks starting at bits
+    0..65,538) and random rows that overflow their frames, in both
+    modes; and again through column slices of wider rows, as the L6 flow
+    hands its bytes and distances over (rows the kernel loads as they
+    are, and rows off its load widths, which the wrapper copies)."""
+    lanes, tables = _emit_arrays(make(), card)
+    _emit_equal(*lanes, *tables)
+    _emit_equal(*lanes)
+    data, ml, dist, sel, lit, s = lanes
+    for pad in (40, 41):         # (ml, dist) rows on 16 bytes, and not
+        wide = [torch.cat([torch.zeros_like(x[:, :pad]), x], dim=1)[:, pad:]
+                for x in (data, ml, dist, sel, lit)]
+        assert wide[2].stride(0) == s + pad
+        _emit_equal(*wide, s, *tables)
+        _emit_equal(*wide, s)
+
+
+def test_emit_kernel_equals_plain_on_trap_windows(card):
+    """The L6 trap windows through the match, select and table kernels,
+    as the L6 flow runs them, then the emit kernel in both modes."""
+    from libdeflate_rsx_tpu_torch.ops import dyn_tables as dt
+    from libdeflate_rsx_tpu_torch.ops import encode_dynamic as ed
+
+    _, rows, valid, hist, s = l6_windows()
+    rows, valid, hist = (torch.from_numpy(x).to(card)
+                         for x in (rows, valid, hist))
+    block = s - ed.HIST
+    ml, dist, sel, lit, llh, ofh = ed.analyze_block_l6(rows, valid, hist,
+                                                       block)
+    finals = torch.zeros(rows.shape[0], dtype=torch.bool, device=card)
+    ll, of, _, hdr_bits = dt.build_tables(llh, ofh, finals)
+    lanes = (rows[:, ed.HIST:], ml, dist, sel, lit, block)
+    _emit_equal(*lanes, ll, of, hdr_bits)
+    _emit_equal(*lanes)
+
+
+@pytest.mark.parametrize("block", [16384, 65536])
+@pytest.mark.parametrize("kind", ["text", "random", "zeros", "pattern",
+                                  "periodic:7"])
+@pytest.mark.parametrize("tier", ["l6", "l4", "static"])
+def test_emit_kernel_equals_plain_on_flow_rows(card, tier, kind, block):
+    """The L6, L4 and L1 tiers' emit inputs from their kernels (a first
+    and a short last block; the L6 bytes and distances column slices of
+    wider rows)."""
+    data = make_corpus(kind, 2 * block + 777, seed=len(kind))
+    level = {"l6": 6, "l4": 4, "static": 1}[tier]
+    lanes, tables = emit_pass_inputs([data], level, block, card)
+    if tier == "l6":
+        assert lanes[0].stride(1) == 1 and lanes[2].stride(0) > block
+    _emit_equal(*lanes, *tables)
+
+
+def test_emit_kernel_empty_batch_and_guards(card):
+    from libdeflate_rsx_tpu_torch.ops import emit as em
+
+    s = 1024
+    none = torch.zeros((0, s), dtype=torch.int64, device=card)
+    nob = none.bool()
+    data = torch.zeros((0, s + 8), dtype=torch.uint8, device=card)
+    tabs = (torch.zeros((0, 288), dtype=torch.int32, device=card),
+            torch.zeros((0, 30), dtype=torch.int32, device=card),
+            torch.zeros(0, dtype=torch.int64, device=card))
+    for tables in (tabs, ()):
+        got = _emit_equal(data, none, none, nob, nob, s, *tables)
+        assert got[0].shape == (0, s // 32, 65 if tables else 49)
+        assert got[3].shape == (0,)
+    one = torch.zeros((1, s), dtype=torch.int64, device=card)
+    rows = torch.zeros((1, s + 8), dtype=torch.uint8, device=card)
+    before = em.LAUNCHES
+    with pytest.raises(ValueError):                  # rows of 32 lanes
+        em.emit(rows, one[:, :s - 8], one[:, :s - 8], one[:, :s - 8].bool(),
+                one[:, :s - 8].bool(), s - 8)
+    with pytest.raises(ValueError):
+        em.emit(rows, one.int(), one, one.bool(), one.bool(), s)
+    with pytest.raises(ValueError):
+        em.emit(rows[:, :s - 1], one, one, one.bool(), one.bool(), s)
+    with pytest.raises(ValueError):                  # a table short
+        em.emit(rows, one, one, one.bool(), one.bool(), s,
+                torch.zeros((1, 287), dtype=torch.int32, device=card),
+                torch.zeros((1, 30), dtype=torch.int32, device=card),
+                torch.zeros(1, dtype=torch.int64, device=card))
+    assert em.LAUNCHES == before
