@@ -6,9 +6,9 @@ Usage: python3 chip_smoke.py      (from the root of a checkout; one card)
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
-2. build: the nine CUDA kernel sources (pass 1, inflate_v2,
+2. build: the ten CUDA kernel sources (pass 1, inflate_v2,
    inflate_static, dyn_tables, assemble_rows, resolve, match_l6,
-   select, emit), from
+   match_v2, select, emit), from
    csrc/ with one nvcc each, all started together (build/kernels/);
 3. pass 1 (the segment route's kernels) against its plain PyTorch
    version, both on the card, at the 64 KiB out_cap: zlib streams of
@@ -67,9 +67,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    use_device=True) over the corpus in 1 MiB items (64 KiB blocks),
    every output checked with zlib, ratio and wall per level (two runs);
    the first two items again with device="cpu", equal bytes; at L1 and
-   L4 the assembly, select and emit kernels launched once a device
-   pass, at L4 the table kernel too;
-14. their two-pass decode: BatchDecompressor(use_device=True,
+   L4 the match_v2, assembly, select and emit kernels launched once a
+   device pass, at L4 the table kernel too, at L0 none of them; then
+   the first 256 64 KiB slices compressed at levels 0, 1 and 4 for
+   phases 14-16 (match_v2 launched again);
+14. their two-pass decode (no match_v2 launch in phases 14-16):
+   BatchDecompressor(use_device=True,
    resolve="device") on the L1 and L4 items and on the level-0 streams
    of the first 256 64-KiB slices, byte-exact; every host fallback is
    "in_cap" of a stream over 1 MiB; pass 1 and the resolve kernel
@@ -180,12 +183,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    L4 and L1 passes; the bound counts what this run's tokens need: every
    lane's sel flag, the lit flag of each lane not sel, the byte of each
    literal, int64 (ml, dist) of each sel lane, and each row's buffer and
-   two int64 out.
+   two int64 out;
+29. the L1-5 match kernel (match_v2: find_matches_v2 on the card)
+   against its plain version on the card: the L4 pass's 259 blocks,
+   one L1 per-item pass's 16 blocks, zeros and random blocks, and the
+   seeded trap blocks of tests/_port_corpus.py (v2_cases, at block
+   sizes 1 to 100,000): ml and dist equal at every position; then timed
+   on the L4 pass (the record) beside the plain version on the card,
+   and on the L1 pass; the bound counts each block's bytes and the 7
+   its last words read, valid_len, and int64 (ml, dist) out.
 
 Phases 13-21 drive the level 0-5 tiers, the checksums, the memory
 budget and the sharded paths, the port's modules with no kernel of
 their own; the kernels' launches there are logged and asserted, and
-their records stay those of phases 3-12, 22-26 and 28.
+their records stay those of phases 3-12, 22-26, 28 and 29.
 Each kernel's record (ms, plain_ms, bound_ms) is taken on its path's
 own inputs, where every input and output byte is needed: the bound is
 those bytes over the card's memory rate. The last two lines are the
@@ -230,7 +241,8 @@ N_SMALL = (1, 7)        # small-batch path batch sizes
 N_STATIC = 128          # Z_FIXED slices through inflate_device_static
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM device memory, 3.35 TB/s
 KERNELS = ("inflate_tokens", "inflate_v2", "inflate_static", "dyn_tables",
-           "assemble_rows", "resolve", "match_l6", "select", "emit")
+           "assemble_rows", "resolve", "match_l6", "match_v2", "select",
+           "emit")
 TIER_LEVELS = (0, 1, 4)     # the stored, static and dynamic compress tiers
 N_CPU_ITEMS = 2             # items also compressed with device="cpu"
 BUDGET_OVER = 1.2           # phases 18, 20: one-pass need / card memory
@@ -889,20 +901,24 @@ def phase_static_path(data: bytes):
 def phase_compress_tiers(data: bytes):
     """BatchCompressor at levels 0, 1 and 4 over the 1 MiB items on the
     card, twice; every output through zlib; the first N_CPU_ITEMS items
-    again on the CPU, equal bytes. Returns {level: outputs}."""
+    again on the CPU, equal bytes. Returns the items, {level: outputs}
+    and match_v2's launches over the L1 and L4 runs."""
     import torch
     from libdeflate_rsx_tpu_torch import BatchCompressor
     from libdeflate_rsx_tpu_torch.ops import assemble as asm
     from libdeflate_rsx_tpu_torch.ops import dyn_tables as dtab
     from libdeflate_rsx_tpu_torch.ops import emit as em
+    from libdeflate_rsx_tpu_torch.ops import match_v2 as mv2
     from libdeflate_rsx_tpu_torch.ops import select as sl
 
     items = [data[i:i + ITEM] for i in range(0, len(data), ITEM)]
     comp = {}
+    v2_launches = 0
     for level in TIER_LEVELS:
         bc = BatchCompressor(level=level, use_device=True, device="cuda")
         # this tier starts here
         dtab.LAUNCHES = asm.LAUNCHES = sl.LAUNCHES = em.LAUNCHES = 0
+        mv2.LAUNCHES = 0
         walls = []
         with counting_phases() as phases:
             for _ in range(2):
@@ -911,11 +927,13 @@ def phase_compress_tiers(data: bytes):
                 out = bc.compress_batch(items)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
-        launches = (dtab.LAUNCHES, asm.LAUNCHES, sl.LAUNCHES, em.LAUNCHES)
+        launches = (dtab.LAUNCHES, asm.LAUNCHES, sl.LAUNCHES, em.LAUNCHES,
+                    mv2.LAUNCHES)
         passes = phases["assemble"]
+        v2_launches += mv2.LAUNCHES
         assert (passes > 0) == (level >= 1), (level, passes)
         assert launches == (passes if level >= 4 else 0, passes, passes,
-                            passes), (level, launches, passes)
+                            passes, passes), (level, launches, passes)
         for i, (it_, c) in enumerate(zip(items, out)):
             assert zlib.decompress(c, -15) == it_, f"L{level} item {i}"
         t0 = time.perf_counter()
@@ -929,10 +947,10 @@ def phase_compress_tiers(data: bytes):
             f"again {walls[1]:.3f} s; the first {N_CPU_ITEMS} items on the "
             f"CPU equal ({cpu_s:.2f} s); dyn_tables launches {launches[0]}, "
             f"assembly launches {launches[1]}, select launches "
-            f"{launches[2]}, emit launches {launches[3]}, device passes "
-            f"{passes} (two runs)")
+            f"{launches[2]}, emit launches {launches[3]}, match_v2 launches "
+            f"{launches[4]}, device passes {passes} (two runs)")
         comp[level] = out
-    return items, comp
+    return items, comp, v2_launches
 
 
 def phase_decode_tiers(data: bytes, items, comp, tier_slices):
@@ -2101,6 +2119,97 @@ def phase_emit_kernel(items, card: str):
                   plain_ms, nbytes)
 
 
+def v2_vs_plain(rows, valid, s, label: str) -> int:
+    """The L1-5 match kernel (find_matches_v2 on the card, one launch)
+    and its plain version on the card on the same blocks: ml and dist
+    equal. Returns the max abs err."""
+    import torch
+    from libdeflate_rsx_tpu_torch.ops import match_v2 as mv2
+    from libdeflate_rsx_tpu_torch.ops.encode_v2 import (find_matches_v2,
+                                                        find_matches_v2_plain)
+
+    before = mv2.LAUNCHES
+    got = find_matches_v2(rows, valid, s)
+    assert mv2.LAUNCHES == before + (rows.shape[0] > 0), \
+        f"match_v2 {label}: not one launch"
+    want = find_matches_v2_plain(rows, valid, s)
+    torch.cuda.synchronize()
+    err = max(int((g - w).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    assert all(g.dtype == torch.int64 and torch.equal(g, w)
+               for g, w in zip(got, want)), \
+        f"match_v2 {label}: kernel != plain (max abs err {err})"
+    return err
+
+
+def v2_bytes(rows, s) -> int:
+    """Bytes the L1-5 match finder must move once: each block's s bytes
+    and the 7 past it that its last words read, int64 valid_len, and
+    int64 (ml, dist) of every position out."""
+    b = rows.shape[0]
+    return b * (s + 7) + 8 * b + 16 * b * s
+
+
+def phase_v2_match_kernel(items, card: str):
+    """Phase 29: the L1-5 match kernel against its plain version on the
+    card, on the L4 pass's blocks of the corpus items, one L1 per-item
+    pass's blocks, zeros and random blocks, and the seeded trap blocks
+    of the CPU tests at every size; then its record, timed on the L4
+    pass, and its time on the L1 pass. Returns the record."""
+    import numpy as np
+    import torch
+    from _port_corpus import V2_SIZES, v2_cases
+    from libdeflate_rsx_tpu_torch.models import greedy_dynamic as gd
+    from libdeflate_rsx_tpu_torch.models import greedy_static as gs
+    from libdeflate_rsx_tpu_torch.ops import match_v2 as mv2
+    from libdeflate_rsx_tpu_torch.ops.encode_v2 import (find_matches_v2,
+                                                        find_matches_v2_plain)
+
+    def on_card(*arrays):
+        return tuple(torch.from_numpy(x).cuda() for x in arrays)
+
+    _, arr, valid, _, _ = gd.split_many(items, SLICE, False)
+    l4 = on_card(arr, valid)
+    errs = [v2_vs_plain(*l4, SLICE, "the L4 pass")]
+    arr1, valid1, _, _ = gs.split_blocks(items[0], SLICE)
+    l1 = on_card(arr1, valid1)
+    errs.append(v2_vs_plain(*l1, SLICE, "an L1 pass"))
+    rng = np.random.default_rng(29)
+    edge = [bytes(2 * SLICE), rng.integers(0, 256, 2 * SLICE - 999,
+                                           dtype=np.uint8).tobytes()]
+    _, e_arr, e_valid, _, _ = gd.split_many(edge, SLICE, False)
+    errs.append(v2_vs_plain(*on_card(e_arr, e_valid), SLICE,
+                            "zeros and random blocks"))
+    n_traps = 0
+    for s in V2_SIZES:
+        labels, t_rows, t_valid = v2_cases(s)
+        errs.append(v2_vs_plain(*on_card(t_rows, t_valid), s,
+                                f"the trap blocks of {s} bytes"))
+        n_traps += len(labels)
+    log(f"match_v2 vs plain: equal at every position of the L4 pass's "
+        f"{arr.shape[0]} blocks, an L1 pass's {arr1.shape[0]}, 2 zeros and "
+        f"2 random blocks and {n_traps} trap blocks (sizes "
+        f"{', '.join(map(str, V2_SIZES))}), max abs err {max(errs)}")
+    size, smem, clusters = mv2.launch_shape(SLICE)
+    t1 = time_cuda(lambda: find_matches_v2(*l1, SLICE), KERNEL_REPS)
+    tp1 = time_cuda(lambda: find_matches_v2_plain(*l1, SLICE), KERNEL_REPS)
+    log(f"match_v2 on an L1 pass's {arr1.shape[0]} blocks: kernel "
+        f"{t1:.4f} ms, plain version {tp1:.3f} ms (CUDA events, "
+        f"{KERNEL_REPS} calls each); bound "
+        f"{v2_bytes(arr1, SLICE) / HBM_BYTES_PER_MS:.6f} ms [{card}]")
+    ms = time_cuda(lambda: find_matches_v2(*l4, SLICE), KERNEL_REPS)
+    plain_ms = time_cuda(lambda: find_matches_v2_plain(*l4, SLICE),
+                         KERNEL_REPS)
+    b = arr.shape[0]
+    log(f"match_v2 on the L4 pass's {b} blocks: kernel {ms:.3f} ms, plain "
+        f"version {plain_ms:.3f} ms on the card (CUDA events, "
+        f"{KERNEL_REPS} calls each); clusters of {size} blocks ({smem} B "
+        f"of shared memory each), {clusters} resident, "
+        f"{-(-b // clusters)} rounds [{card}]")
+    return record("match_v2", "ops/encode_v2.py:73", max(errs), ms,
+                  plain_ms, v2_bytes(arr, SLICE))
+
+
 def phase_resolve_tokens(slices, chunks, rec_rs: dict, card: str) -> None:
     """Phase 27a: ops.resolve.resolve_tokens_device on pass 1's token
     columns of the 256 zlib-6 slices at the 64 KiB out_cap, on the card:
@@ -2247,6 +2356,7 @@ def main() -> int:
     from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
     from libdeflate_rsx_tpu_torch.ops import inflate_v2 as v2
     from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+    from libdeflate_rsx_tpu_torch.ops import match_v2 as mv2
     from libdeflate_rsx_tpu_torch.ops import resolve as rs
     from libdeflate_rsx_tpu_torch.ops import select as sl
 
@@ -2317,12 +2427,20 @@ def main() -> int:
     log(f"inflate_static launches on the static path: {st.LAUNCHES}")
 
     t_tiers = time.perf_counter()
-    items, comp = phase_compress_tiers(data)
+    items, comp, launches_v2m = phase_compress_tiers(data)
+    mv2.LAUNCHES = 0                    # the slices' compress starts here
     sliced = tier_slices(data)
+    sliced_v2m = mv2.LAUNCHES
+    assert sliced_v2m >= 2, f"the slices' L1 and L4 compress launched " \
+        f"match_v2 {sliced_v2m} times"
     phase_decode_tiers(data, items, comp, sliced)
     phase_small_tiers(data, sliced)
     rec_st["max_abs_err"] = max(rec_st["max_abs_err"],
                                 phase_static_tier(data, sliced))
+    assert mv2.LAUNCHES == sliced_v2m, "a decode phase launched match_v2"
+    log(f"match_v2 launches: {launches_v2m} on the L1 and L4 compress of "
+        f"the items (two runs each), {sliced_v2m} on the slices' compress, "
+        f"none in phases 14-16")
     phase_checksums(data)
     log(f"phases 13-17 (the level 0-5 tiers and the checksums): "
         f"{time.perf_counter() - t_tiers:.1f} s")
@@ -2379,6 +2497,11 @@ def main() -> int:
     rec_em["launches"] = launches_em
     log(f"phase 28 (the emit kernel): "
         f"{time.perf_counter() - t_tail:.1f} s")
+    t_tail = time.perf_counter()
+    rec_v2m = phase_v2_match_kernel(items, card)
+    rec_v2m["launches"] = launches_v2m
+    log(f"phase 29 (the L1-5 match kernel): "
+        f"{time.perf_counter() - t_tail:.1f} s")
     assert "jax" not in sys.modules, "the port imported jax"
     assert not any(m.split(".")[0] == "libdeflate_rsx_tpu"
                    for m in sys.modules), "the port imported the JAX package"
@@ -2386,7 +2509,8 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     print(json.dumps({"kernels": [rec, rec_v2, rec_st, rec_dt, rec_asm,
-                                  rec_rs, rec_ml6, rec_sl, rec_em]}))
+                                  rec_rs, rec_ml6, rec_sl, rec_em,
+                                  rec_v2m]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -43,16 +43,17 @@ SHARERS = 1
 #: likewise, then 189.3 at L6, 279.2 at levels 4-5 and 172.5 at levels
 #: 1-3 once the selection ran as a kernel (ops/select.py; 700.00 W),
 #: then 23.65 at L6 and 91.73 at levels 1-5 once the emit ran as a
-#: kernel (ops/emit.py; 700.00 W: find_matches_v2's plain sort now sets
-#: the levels 1-5 peaks), each rounded likewise, and 9.37 for the
-#: two-pass decode with
+#: kernel (ops/emit.py; 700.00 W), then 26.93 at levels 1-3 and 26.96
+#: at 4-5 once the L1-5 match finder ran as a kernel (ops/match_v2.py;
+#: 700.00 W: its plain sort had set those peaks), each rounded likewise,
+#: and 9.37 for the two-pass decode with
 #: the resolve kernel on the L6 items (7.00 on the 64 KiB slices, phase
 #: 20; NVIDIA H100 80GB HBM3, 700.00 W), rounded up by a half (a stored
 #: stream's input, as long as its output, adds pass-1 scratch that the
 #: L6 items lack)
 PEAK_PER_BYTE = {
-    "static": 120,     # levels 1-3: per byte of a block row
-    "dynamic": 120,    # levels 4-5 and the sharded dynamic tier
+    "static": 40,      # levels 1-3: per byte of a block row
+    "dynamic": 40,     # levels 4-5 and the sharded dynamic tier
     "l6": 32,          # levels 6-9: per byte of a row with its history
     "decode": 15,      # two-pass decode: per max(out_cap, input) byte
 }

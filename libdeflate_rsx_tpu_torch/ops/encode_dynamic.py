@@ -27,8 +27,11 @@ memory), then the selection (`ops/select.select`, `csrc/select.cu`: run
 extension, the history mask, lazy demotion, greedy selection and the
 histograms, a thread block per window); analyze_block and the level-1
 encoder (encode_v2.encode_rows_static) run the selection kernel after
-find_matches_v2. On the CPU the same functions run the plain versions:
-`find_matches_l6_plain` here and `select.select_plain` (extend_runs,
+find_matches_v2 (`csrc/match_v2.cu`: a thread block cluster per window
+of a block, its positions sorted by word in distributed shared memory,
+then one sweep). On the CPU the same functions run the plain versions:
+`find_matches_l6_plain` here, `encode_v2.find_matches_v2_plain` and
+`select.select_plain` (extend_runs,
 select_tokens_l6 or select_tokens, _histograms). In the plain match
 finder (as in find_matches_v2)
 the JAX package's multi-operand stable sorts become one stable

@@ -4,7 +4,9 @@ token selection and bit packing.
 Port of `libdeflate_rsx_tpu/ops/encode_v2.py`: `find_matches_v2`,
 `extend_runs`, `select_tokens`, `pack_rows` and the fused level-1
 encoder `encode_rows_static`; the JAX package's host-side row placement
-`assemble_blocks` is ops/assemble.py's place_rows.
+`assemble_blocks` is ops/assemble.py's place_rows. `find_matches_v2`
+launches the match kernel (`csrc/match_v2.cu`, ops/match_v2.py) for
+CUDA tensors and runs `find_matches_v2_plain` for CPU tensors.
 The JAX functions take one block and are vmapped; these take a batch of
 blocks, shape (B, s). uint32 values are held in int64. The JAX
 package's stable multi-operand sort becomes one stable `torch.sort`
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..common import MAX_MATCH_LEN, WINDOW_SIZE
+from . import match_v2
 from .static_codes import literal_code, match_token
 
 ROW = 32                  # cover/pack row width (bytes)
@@ -69,6 +72,17 @@ def _unsort(order: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
 
 def find_matches_v2(data_padded: torch.Tensor, valid_len: torch.Tensor,
                     block_size: int):
+    """find_matches_v2_plain's (ml, dist): one launch of the match kernel
+    for CUDA tensors (ops/match_v2.py, no fallback), the plain version
+    for CPU tensors; a block size the kernel does not take raises."""
+    match_v2.check_v2_block(block_size)
+    if data_padded.device.type == "cpu":
+        return find_matches_v2_plain(data_padded, valid_len, block_size)
+    return match_v2.find_matches_v2_cuda(data_padded, valid_len, block_size)
+
+
+def find_matches_v2_plain(data_padded: torch.Tensor, valid_len: torch.Tensor,
+                          block_size: int):
     """(ml, dist) (B, s) per position: nearest-previous-occurrence
     matches with exact lengths up to MAX_VEC_ML, from one stable sort on
     the 4-byte word at each position carrying the next word.

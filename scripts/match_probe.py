@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where the L6 match kernel's time goes, on one CUDA card, and how it
-compares with other designs of it.
+"""Where the match kernels' time goes, on one CUDA card, and how they
+compare with other designs of them.
 
-Usage: python3 scripts/match_probe.py [--versus CSRC_DIR ...] [--out FILE]
-       (from the root of a checkout; about a minute)
+Usage: python3 scripts/match_probe.py [--v2] [--versus CSRC_DIR ...]
+       [--out FILE]      (from the root of a checkout; about a minute)
 
 Builds the kernels, makes the Silesia-like corpus as `chip_smoke.py`
 does, and takes the L6 pass's windows of its 1 MiB items (259 windows of
@@ -27,8 +27,15 @@ own `ldrsx_match_l6` (the cluster kernel's entry, or the one-block-per-
 window kernel's of PR 11 with its global scratch), held equal to the
 tree's kernel and timed in turns with it (each versus, tree, tree, each
 versus in reverse), with its stages where its source has the stamped
-entry. Every line names the card
-and is copied to FILE when given.
+entry.
+
+With --v2, the same for the L1-5 match kernel (`csrc/match_v2.cu`,
+`find_matches_v2` on the card) instead: held to its plain version and
+timed beside it and the byte bound on the L4 pass's 259 blocks of
+65,536 positions and on one L1 per-item pass's 16, with its launch
+shape; --versus then builds the `match_v2.cu` of each directory and
+times it in turns with the tree's, held equal. Every line names the
+card and is copied to FILE when given.
 """
 
 import argparse
@@ -115,30 +122,60 @@ def caller(lib, kind: dict):
     return call
 
 
-def build_versus(dirs: list[str]) -> list[dict]:
-    """For each csrc directory, its match_l6.cu compiled with the tree's
-    flags into build/versus_match/<k>/ (one nvcc each, all started
-    together): [{"label", "fn", "stamped"}]."""
+def v2_caller(lib):
+    """find_matches_v2-like callable (rows, valid, s) through a match_v2
+    library's C entry."""
+    import torch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ldrsx_match_v2.argtypes = [p, i, i, i, p, p, p, p]
+    lib.ldrsx_match_v2.restype = i
+
+    def call(rows, valid, s):
+        b, dev = rows.shape[0], rows.device
+        ml = torch.empty((b, s), dtype=torch.int64, device=dev)
+        dist = torch.empty((b, s), dtype=torch.int64, device=dev)
+        valid32 = valid.to(torch.int32)
+        rc = lib.ldrsx_match_v2(rows.data_ptr(), b, rows.shape[1], s,
+                                valid32.data_ptr(), ml.data_ptr(),
+                                dist.data_ptr(),
+                                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"match_v2 failed: CUDA error {rc}")
+        return ml, dist
+    return call
+
+
+def build_versus(dirs: list[str], name: str = "match_l6") -> list:
+    """For each csrc directory, its <name>.cu compiled with the tree's
+    flags into build/versus_<name>/<k>/ (one nvcc each, all started
+    together): [(label, library)]."""
     from libdeflate_rsx_tpu_torch.ops import _build
     jobs = []
     for k, csrc in enumerate(dirs):
-        out = os.path.join(ROOT, "build", "versus_match", str(k))
+        out = os.path.join(ROOT, "build", f"versus_{name}", str(k))
         os.makedirs(out, exist_ok=True)
-        so = os.path.join(out, "match_l6.so")
+        so = os.path.join(out, f"{name}.so")
         jobs.append((k, csrc, so, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", so,
-             os.path.join(csrc, "match_l6.cu")], stdout=subprocess.PIPE,
+             os.path.join(csrc, f"{name}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)))
     found = []
     for k, csrc, so, p in jobs:
         _, err = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {so}:\n{err}")
-        lib = ctypes.CDLL(so)
-        kind = bind(lib)
-        found.append({"label": f"versus {k} ({csrc})",
-                      "fn": caller(lib, kind), **kind})
+        found.append((f"versus {k} ({csrc})", ctypes.CDLL(so)))
     return found
+
+
+def in_turns(runs: dict, reps: int) -> dict:
+    """CUDA-event ms of each run, in turns: each versus, the tree twice,
+    each versus in reverse."""
+    others = [k for k in runs if k != "tree"]
+    t = {k: [] for k in runs}
+    for k in others + ["tree", "tree"] + others[::-1]:
+        t[k].append(cs.time_cuda(runs[k], reps))
+    return t
 
 
 def stages(fn, args, names, cluster: bool) -> str:
@@ -175,7 +212,10 @@ def probe(say, versus_dirs) -> int:
     cs.phase_build()
     lib = _build.load("match_l6")
     tree = caller(lib, bind(lib))
-    versus = build_versus(versus_dirs)
+    versus = []
+    for label, vlib in build_versus(versus_dirs):
+        kind = bind(vlib)
+        versus.append({"label": label, "fn": caller(vlib, kind), **kind})
     data = cs.corpus()
     items = [data[i:i + cs.ITEM] for i in range(0, len(data), cs.ITEM)]
     rows, valid, hist, s = cs.l6_windows_of(items, cs.SLICE)
@@ -189,10 +229,7 @@ def probe(say, versus_dirs) -> int:
         assert all(torch.equal(a, b) for a, b in zip(mine, got)), \
             f"tree != {v['label']}"
         runs[v["label"]] = (lambda fn: lambda: fn(*args))(v["fn"])
-    others = [k for k in runs if k != "tree"]
-    t = {k: [] for k in runs}
-    for k in others + ["tree", "tree"] + others[::-1]:
-        t[k].append(cs.time_cuda(runs[k], REPS))
+    t = in_turns(runs, REPS)
     plain = cs.time_cuda(lambda: find_matches_l6_plain(*args), 3)
     b = rows.shape[0]
     nbytes = rows.numel() + 8 * b + 16 * b * s
@@ -215,10 +252,63 @@ def probe(say, versus_dirs) -> int:
     return 0
 
 
+def probe_v2(say, versus_dirs) -> int:
+    import torch
+    from libdeflate_rsx_tpu_torch.models import greedy_dynamic as gd
+    from libdeflate_rsx_tpu_torch.models import greedy_static as gs
+    from libdeflate_rsx_tpu_torch.ops import _build
+    from libdeflate_rsx_tpu_torch.ops.encode_v2 import find_matches_v2_plain
+    from libdeflate_rsx_tpu_torch.ops.match_v2 import launch_shape
+
+    if not torch.cuda.is_available():
+        print("match_probe: no CUDA device", file=sys.stderr)
+        return 1
+    card = cs.phase_card()
+    cs.phase_build()
+    tree = v2_caller(_build.load("match_v2"))
+    versus = [(label, v2_caller(lib))
+              for label, lib in build_versus(versus_dirs, "match_v2")]
+    data = cs.corpus()
+    items = [data[i:i + cs.ITEM] for i in range(0, len(data), cs.ITEM)]
+    s = cs.SLICE
+    _, arr, valid, _, _ = gd.split_many(items, s, False)
+    arr1, valid1, _, _ = gs.split_blocks(items[0], s)
+    for label, (rows, v) in (("the L4 pass", (arr, valid)),
+                             ("an L1 pass", (arr1, valid1))):
+        args = (torch.from_numpy(rows).cuda(), torch.from_numpy(v).cuda(), s)
+        cs.v2_vs_plain(*args, label)
+        mine = tree(*args)
+        runs = {"tree": lambda: tree(*args)}
+        for vlabel, fn in versus:
+            got = fn(*args)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(mine, got)), \
+                f"tree != {vlabel}"
+            runs[vlabel] = (lambda f: lambda: f(*args))(fn)
+        t = in_turns(runs, REPS)
+        plain = cs.time_cuda(lambda: find_matches_v2_plain(*args), 3)
+        b = rows.shape[0]
+        nbytes = cs.v2_bytes(rows, s)
+        say(f"match_v2 on {label}'s {b} blocks (s = {s}): "
+            + "; ".join(f"{k} " + " / ".join(f"{x:.4f}" for x in v)
+                        for k, v in t.items())
+            + f" ms per call (CUDA events, {REPS} calls each, in turns); "
+            f"plain version {plain:.3f} ms on the card; bound "
+            f"{nbytes / cs.HBM_BYTES_PER_MS:.6f} ms ({nbytes} bytes) [{card}]")
+    size, smem, clusters = launch_shape(s)
+    b = arr.shape[0]
+    say(f"  tree launch: clusters of {size} blocks ({smem} B of shared "
+        f"memory each), {clusters} resident at once, "
+        f"{-(-b // clusters)} rounds over the L4 pass's {b} windows")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--versus", nargs="*", default=[],
                     help="other csrc directories to time against")
+    ap.add_argument("--v2", action="store_true",
+                    help="probe the L1-5 match kernel (match_v2)")
     ap.add_argument("--out", help="also write every line to this file")
     args = ap.parse_args()
     with contextlib.ExitStack() as stack:
@@ -229,7 +319,7 @@ def main() -> int:
             if out is not None:
                 print(msg, file=out, flush=True)
 
-        return probe(say, args.versus)
+        return (probe_v2 if args.v2 else probe)(say, args.versus)
 
 
 if __name__ == "__main__":

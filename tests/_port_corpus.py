@@ -937,3 +937,97 @@ def emit_pass_inputs(datas, level: int, block: int, device):
         arr, valid, finals, block,
         None if hist is None else torch.from_numpy(hist).to(device))
     return (*lanes, block), tables
+
+
+# --------------------------------------------- L1-5 match-finder blocks
+#: block sizes of the trap set: the cluster's chunk (a quarter of the
+#: block) does not divide 1 and 1,021; 100,000 is cut into windows
+V2_SIZES = (1, 1021, 1024, 16384, 65536, 100000)
+V2_ROW_PAD = 266        # bytes past a block in its row (BLOCK_PAD)
+
+
+def v2_cases(s: int, seed: int = 29):
+    """Seeded blocks of s bytes that hit find_matches_v2's traps:
+    (labels, rows (B, s + V2_ROW_PAD) uint8, valid (B,) int32). The
+    bytes past each block, and past valid_len where it is short, are
+    random and non-zero (the words read them as they are), except in the
+    repeated-byte block, whose padding repeats its byte. Traps that need
+    room come only at sizes that hold them: w1 differing in byte 0-3 or
+    not at all (ml 4-8), the smallest word first or once (the first
+    element of the sorted order), distances 32,767-32,769 and a nearest
+    copy 32,769 back with an older one further (65,536 and up), and
+    matches at the edges of the kernel's windows of a longer block
+    (past 65,536)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + s)
+    text = np.frombuffer(make_corpus("text", s, seed=seed), np.uint8)
+    out = []
+
+    def add(label, body, valid=s, tail=None):
+        row = np.empty(s + V2_ROW_PAD, np.uint8)
+        row[:s] = body[:s]
+        row[s:] = rng.integers(1, 256, V2_ROW_PAD) if tail is None else tail
+        out.append((label, row, valid))
+
+    def background():
+        # no byte 0-15 in it: a planted word starting with 1 is unique
+        return rng.integers(16, 256, s, dtype=np.uint8)
+
+    def plant(body, p, d, n=12):
+        """A unique word at p - d, its n bytes copied to p."""
+        body[p - d] = 1
+        body[p - d + 1:p - d + n] = rng.integers(16, 256, n - 1)
+        body[p:p + n] = body[p - d:p - d + n]
+
+    add("random", rng.integers(0, 256, s, dtype=np.uint8))
+    add("text", text)
+    add("periodic 7", np.frombuffer(make_corpus("periodic:7", s, seed=2),
+                                    np.uint8))
+    add("zeros", np.zeros(s, np.uint8))
+    add("one repeated byte", np.full(s, 0x61, np.uint8),
+        tail=np.full(V2_ROW_PAD, 0x61, np.uint8))
+    for v in range(9):
+        add(f"valid_len {v}", text, valid=min(v, s))
+    if s >= 64:
+        add("short last block", text, valid=s - s // 3 - 5)
+        body = rng.integers(1, 256, s, dtype=np.uint8)
+        body[:6] = 0
+        body[s // 2:s // 2 + 6] = 0
+        add("smallest word first", body)
+        body = rng.integers(2, 256, s, dtype=np.uint8)
+        body[s // 3:s // 3 + 4] = 1
+        add("smallest word once", body)
+        body = background()
+        gap = s // 12
+        for j in range(10):
+            p = gap + j * gap
+            plant(body, p, 8 + (j * 37) % (gap - 20), 8)
+            k = j % 5
+            if k < 4:                   # w1 differs in byte k
+                body[p + 4 + k] ^= 0x5A
+        add("w1 differs in byte 0-3 or not at all", body)
+    if s >= 65536:
+        body = background()
+        for d, at in ((32767, 33000), (32768, 40000), (32769, 45000)):
+            plant(body, at, d, 40)
+        add("distances 32767-32769", body)
+        body = background()
+        plant(body, 50000, 32769)
+        body[50000 - 40000:50000 - 40000 + 12] = body[50000:50000 + 12]
+        plant(body, 60000, 20000)
+        body[60000 - 30000:60000 - 30000 + 12] = body[60000:60000 + 12]
+        add("nearest 32769 back, older further", body)
+    if s > 65536:
+        # window k of the kernel gives [32768 k, 32768 (k + 1)) and sorts
+        # from 32768 (k - 1): matches to the first position of a window,
+        # across its start and at its edges
+        body = background()
+        for p, d in ((65536, 32768), (65536 + 40, 32769), (65500, 32767),
+                     (32768 + 20, 32768), (98304 - 30, 1000),
+                     (98304 + 12, 32768)):
+            plant(body, p, d, 12)
+        add("window edges", body)
+    labels = [o[0] for o in out]
+    return (labels, np.stack([o[1] for o in out]),
+            np.array([o[2] for o in out], np.int32))

@@ -1,5 +1,6 @@
 """The port on a CUDA card: the pass-1, inflate_v2, inflate_static,
-dyn_tables, assembly, resolve, match_l6, select and emit kernels against
+dyn_tables, assembly, resolve, match_l6, match_v2, select and emit
+kernels against
 their plain PyTorch versions on the card, the slice through the
 kernels, the level 0-6 compress tiers (card bytes equal to CPU bytes,
 decoded through the kernels) and the device checksums under TF32 and
@@ -18,10 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from _port_corpus import (RESOLVE_CASES, edge_cases, edge_rows, emit_cases,
-                          emit_pass_inputs, emit_random_cases, l6_windows,
-                          make_corpus, mutated_streams, select_cases,
-                          select_tile_cases)
+from _port_corpus import (RESOLVE_CASES, V2_SIZES, edge_cases, edge_rows,
+                          emit_cases, emit_pass_inputs, emit_random_cases,
+                          l6_windows, make_corpus, mutated_streams,
+                          select_cases, select_tile_cases, v2_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -455,7 +456,8 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
                                                         monkeypatch):
     """BatchCompressor at levels 1, 4 and 6 on the card: the CPU's bytes,
     with one assembly launch a pass and, at levels 4 and 6, one table
-    launch a pass, at level 6 one match_l6 launch a pass, and one select
+    launch a pass, at level 6 one match_l6 launch a pass, at levels 1 and
+    4 one match_v2 launch a pass, and one select
     and one emit launch a pass at every level; what the flow copies off the card is
     the joined streams (1-D uint8) and the blocks' byte counts and sizes
     ((2, B) int64), no histogram, table or row buffer."""
@@ -464,6 +466,7 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
     from libdeflate_rsx_tpu_torch.ops import assemble as asm
     from libdeflate_rsx_tpu_torch.ops import dyn_tables as dt
     from libdeflate_rsx_tpu_torch.ops import match_l6 as ml6
+    from libdeflate_rsx_tpu_torch.ops import match_v2 as mv2
     from libdeflate_rsx_tpu_torch.ops import emit as em
     from libdeflate_rsx_tpu_torch.ops import select as sl
 
@@ -479,7 +482,7 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
             return _orig(self, *a, **k)
         monkeypatch.setattr(torch.Tensor, name, spy)
     tables, places, matches = dt.LAUNCHES, asm.LAUNCHES, ml6.LAUNCHES
-    selects, emits = sl.LAUNCHES, em.LAUNCHES
+    selects, emits, v2s = sl.LAUNCHES, em.LAUNCHES, mv2.LAUNCHES
     gpu = BatchCompressor(level=level, use_device=True,
                           device=card).compress_batch(TIER_DATAS)
     monkeypatch.undo()
@@ -491,6 +494,7 @@ def test_device_tiers_finish_blocks_through_the_kernels(card, level,
     assert passes >= 1 and asm.LAUNCHES == places + passes
     assert dt.LAUNCHES == tables + (passes if level >= 4 else 0)
     assert ml6.LAUNCHES == matches + (passes if level >= 6 else 0)
+    assert mv2.LAUNCHES == v2s + (passes if level < 6 else 0)
     assert sl.LAUNCHES == selects + passes
     assert em.LAUNCHES == emits + passes
     assert phases.count("tables") == (passes if level >= 4 else 0)
@@ -666,6 +670,87 @@ def test_match_l6_kernel_empty_batch_and_guards(card):
     with pytest.raises(ValueError):
         ml6.find_matches_l6(torch.zeros((1, s + 8), dtype=torch.uint8,
                                         device=card), one, one, s)
+
+
+# ---------------------------------------------------- L1-5 match finder
+def _v2_equal(rows, valid, s):
+    """The L1-5 match kernel (one launch) against its plain version on the
+    same card tensors: ml and dist equal, int64 (B, s)."""
+    from libdeflate_rsx_tpu_torch.ops import match_v2 as mv2
+    from libdeflate_rsx_tpu_torch.ops.encode_v2 import (find_matches_v2,
+                                                        find_matches_v2_plain)
+
+    before = mv2.LAUNCHES
+    got = find_matches_v2(rows, valid, s)
+    assert mv2.LAUNCHES == before + (rows.shape[0] > 0)
+    want = find_matches_v2_plain(rows, valid, s)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == torch.int64
+        assert g.shape == (rows.shape[0], s) and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("s", V2_SIZES)
+def test_match_v2_kernel_equals_plain_on_trap_blocks(card, s):
+    """The trap blocks of the CPU tests (tests/test_torch_match_v2.py):
+    the dist kept past the cap, non-zero padding, the first sorted
+    element, one repeated byte, distances 32,767-32,769, valid_len 0-8,
+    a short last block, w1 in byte 0-3, sizes off the cluster's chunk,
+    the windows of a block past 65,536."""
+    _, rows, valid = v2_cases(s)
+    _v2_equal(torch.from_numpy(rows).to(card),
+              torch.from_numpy(valid).to(card), s)
+
+
+@pytest.mark.parametrize("block", [16384, 65536, 262144])
+@pytest.mark.parametrize("kind", ["text", "random", "zeros", "pattern",
+                                  "periodic:7"])
+def test_match_v2_kernel_equals_plain_on_flow_rows(card, kind, block):
+    """The L1-5 tiers' own rows (a short last block) at the sharded
+    helpers', the tiers' and the global-scratch tests' block sizes."""
+    from libdeflate_rsx_tpu_torch.models import greedy_static as gs
+
+    data = make_corpus(kind, 3 * block + 777, seed=len(kind))
+    arr, valid, _, _ = gs.split_blocks(data, block)
+    _v2_equal(torch.from_numpy(arr).to(card),
+              torch.from_numpy(valid).to(card).long(), block)
+
+
+def test_match_v2_kernel_more_windows_than_clusters(card):
+    """More blocks than the card holds clusters at once: each persistent
+    cluster takes several windows in turn."""
+    from libdeflate_rsx_tpu_torch.ops import match_v2 as mv2
+
+    s = 65536
+    size, smem, clusters = mv2.launch_shape(s, card)
+    assert size == 4 and 0 < smem <= 232448 and clusters >= 1
+    _, rows, valid = v2_cases(s)
+    reps = -(-(clusters + 5) // rows.shape[0])
+    rows = np.concatenate([np.roll(rows, 7 * k, axis=1) for k in range(reps)])
+    _v2_equal(torch.from_numpy(rows).to(card),
+              torch.from_numpy(np.tile(valid, reps)).to(card), s)
+
+
+def test_match_v2_kernel_empty_batch_and_guards(card):
+    from libdeflate_rsx_tpu_torch.ops import match_v2 as mv2
+    from libdeflate_rsx_tpu_torch.ops.encode_v2 import find_matches_v2
+
+    s = 65536
+    none = torch.zeros(0, dtype=torch.int32, device=card)
+    _v2_equal(torch.zeros((0, s + 266), dtype=torch.uint8, device=card),
+              none, s)
+    one = torch.full((1,), s, dtype=torch.int32, device=card)
+    before = mv2.LAUNCHES
+    with pytest.raises(ValueError):                 # no room past the block
+        find_matches_v2(torch.zeros((1, s + 8), dtype=torch.uint8,
+                                    device=card), one, s)
+    with pytest.raises(ValueError):
+        find_matches_v2(torch.zeros((1, s + 266), dtype=torch.int32,
+                                    device=card), one, s)
+    with pytest.raises(ValueError):
+        find_matches_v2(torch.zeros((1, 300), dtype=torch.uint8,
+                                    device=card), one, 0)
+    assert mv2.LAUNCHES == before
 
 
 # ------------------------------------------------------------ selection
