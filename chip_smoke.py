@@ -188,10 +188,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    against its plain version on the card: the L4 pass's 259 blocks,
    one L1 per-item pass's 16 blocks, zeros and random blocks, and the
    seeded trap blocks of tests/_port_corpus.py (v2_cases, at block
-   sizes 1 to 100,000): ml and dist equal at every position; then timed
-   on the L4 pass (the record) beside the plain version on the card,
-   and on the L1 pass; the bound counts each block's bytes and the 7
-   its last words read, valid_len, and int64 (ml, dist) out.
+   sizes 1 to 100,000, the collision traps of its sort by hash
+   included; the traps again in batches that take 8-block clusters):
+   ml and dist equal at every position; no window of the L4 and L1
+   passes takes the sort by the whole word, each escape trap's windows
+   do (the kernel's escape count); the launch shapes of both passes
+   logged; then timed on the L4 pass (the record) beside the plain
+   version on the card, and on the L1 pass; the bound counts each
+   block's bytes and the 7 its last words read, valid_len, and int64
+   (ml, dist) out.
 
 Phases 13-21 drive the level 0-5 tiers, the checksums, the memory
 budget and the sharded paths, the port's modules with no kernel of
@@ -2168,29 +2173,60 @@ def phase_v2_match_kernel(items, card: str):
     def on_card(*arrays):
         return tuple(torch.from_numpy(x).cuda() for x in arrays)
 
+    def escaping(rows, valid, s, label):
+        """v2_vs_plain, and the windows of the launch that took the sort
+        by the whole word."""
+        mv2.reset_escapes()
+        errs.append(v2_vs_plain(rows, valid, s, label))
+        return mv2.escapes()
+
+    errs = []
     _, arr, valid, _, _ = gd.split_many(items, SLICE, False)
     l4 = on_card(arr, valid)
-    errs = [v2_vs_plain(*l4, SLICE, "the L4 pass")]
+    esc4 = escaping(*l4, SLICE, "the L4 pass")
     arr1, valid1, _, _ = gs.split_blocks(items[0], SLICE)
     l1 = on_card(arr1, valid1)
-    errs.append(v2_vs_plain(*l1, SLICE, "an L1 pass"))
+    esc1 = escaping(*l1, SLICE, "an L1 pass")
+    assert esc4 == esc1 == 0, \
+        f"match_v2: {esc4} L4 and {esc1} L1 windows took the word sort"
     rng = np.random.default_rng(29)
     edge = [bytes(2 * SLICE), rng.integers(0, 256, 2 * SLICE - 999,
                                            dtype=np.uint8).tobytes()]
     _, e_arr, e_valid, _, _ = gd.split_many(edge, SLICE, False)
     errs.append(v2_vs_plain(*on_card(e_arr, e_valid), SLICE,
                             "zeros and random blocks"))
-    n_traps = 0
+    n_traps = n_esc = 0
     for s in V2_SIZES:
         labels, t_rows, t_valid = v2_cases(s)
-        errs.append(v2_vs_plain(*on_card(t_rows, t_valid), s,
-                                f"the trap blocks of {s} bytes"))
+        want = sum("(escape)" in x for x in labels) * (2 if s > 65536 else 1)
+        got = escaping(*on_card(t_rows, t_valid), s,
+                       f"the trap blocks of {s} bytes")
+        # the same blocks in batches that fit one round of 8-block clusters
+        step = max(1, mv2.launch_shape(s, 1)[2] // len(mv2.windows(s)))
+        got8 = 0
+        for i in range(0, len(labels), step):
+            assert mv2.launch_shape(s, len(labels[i:i + step]))[0] == 8
+            got8 += escaping(*on_card(t_rows[i:i + step],
+                                      t_valid[i:i + step]), s,
+                             f"the trap blocks of {s} bytes from {i}")
+        assert got == got8 == want, \
+            f"match_v2 traps of {s} bytes: {got} and {got8} windows took " \
+            f"the word sort, not {want}"
         n_traps += len(labels)
+        n_esc += got
+    assert n_esc >= 1
     log(f"match_v2 vs plain: equal at every position of the L4 pass's "
         f"{arr.shape[0]} blocks, an L1 pass's {arr1.shape[0]}, 2 zeros and "
         f"2 random blocks and {n_traps} trap blocks (sizes "
-        f"{', '.join(map(str, V2_SIZES))}), max abs err {max(errs)}")
-    size, smem, clusters = mv2.launch_shape(SLICE)
+        f"{', '.join(map(str, V2_SIZES))}; again in batches of 8-block "
+        f"clusters), max abs err {max(errs)}; windows sorted by the whole "
+        f"word: L4 pass {esc4}, L1 pass {esc1}, the escape traps {n_esc}")
+    for label, rows in (("the L4 pass", arr), ("an L1 pass", arr1)):
+        size, smem, clusters, rounds = mv2.launch_shape(SLICE, rows.shape[0])
+        log(f"match_v2 launch on {label}'s {rows.shape[0]} blocks: "
+            f"clusters of {size} blocks ({smem} B of shared memory each), "
+            f"{clusters} resident, {rounds} rounds")
+    size, smem, clusters, rounds = mv2.launch_shape(SLICE, arr.shape[0])
     t1 = time_cuda(lambda: find_matches_v2(*l1, SLICE), KERNEL_REPS)
     tp1 = time_cuda(lambda: find_matches_v2_plain(*l1, SLICE), KERNEL_REPS)
     log(f"match_v2 on an L1 pass's {arr1.shape[0]} blocks: kernel "
@@ -2204,8 +2240,8 @@ def phase_v2_match_kernel(items, card: str):
     log(f"match_v2 on the L4 pass's {b} blocks: kernel {ms:.3f} ms, plain "
         f"version {plain_ms:.3f} ms on the card (CUDA events, "
         f"{KERNEL_REPS} calls each); clusters of {size} blocks ({smem} B "
-        f"of shared memory each), {clusters} resident, "
-        f"{-(-b // clusters)} rounds [{card}]")
+        f"of shared memory each), {clusters} resident, {rounds} rounds "
+        f"[{card}]")
     return record("match_v2", "ops/encode_v2.py:73", max(errs), ms,
                   plain_ms, v2_bytes(arr, SLICE))
 

@@ -8,8 +8,11 @@ tensors. Both give the same `(ml, dist)`, int64 `(B, s)`, for every
 position of every block (the plain version's docstring states the
 function; the kernel's source notes its design: a thread block cluster
 per window of at most WINDOW_MAX positions, the window's positions
-sorted by word in distributed shared memory, then one sweep, in one
-launch).
+sorted by a 16-bit hash of their word in distributed shared memory, each
+position's nearest earlier copy found by a walk through its bucket, in
+one launch; a window in which a walk would pass more than WALK_CAP runs
+of other words is sorted by the whole word instead, in the same launch,
+and counted: `escapes`).
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 
 from . import _build
 
-__all__ = ["check_v2_block", "find_matches_v2_cuda", "launch_shape"]
+__all__ = ["check_v2_block", "escapes", "find_matches_v2_cuda",
+           "launch_shape", "reset_escapes"]
 
 #: kernel launches made by `find_matches_v2_cuda` (the plain version
 #: does not count)
@@ -36,6 +40,11 @@ REACH = 32768
 #: bytes a row must hold past the block: the words read 7 bytes past
 #: it, and the kernel's aligned copy up to 16 more
 ROW_PAD = 24
+#: the kernel's hash of a word w: (w * HASH_MUL mod 2^32) >> 16
+HASH_MUL = 0x9E3779B1
+#: runs of other words a walk through a bucket may pass; a window where
+#: one would pass more takes the sort by the whole word
+WALK_CAP = 64
 
 
 def _lib():
@@ -43,10 +52,15 @@ def _lib():
     if lib.ldrsx_match_v2.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.ldrsx_match_v2_shape.argtypes = [i, ip, ip, ip]
+        lib.ldrsx_match_v2_shape.argtypes = [i, i, ip, ip, ip, ip]
         lib.ldrsx_match_v2_shape.restype = ctypes.c_int
         lib.ldrsx_match_v2.argtypes = [p, i, i, i, p, p, p, p]
         lib.ldrsx_match_v2.restype = ctypes.c_int
+        lib.ldrsx_match_v2_escapes.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.ldrsx_match_v2_escapes.restype = ctypes.c_int
+        lib.ldrsx_match_v2_reset_escapes.argtypes = []
+        lib.ldrsx_match_v2_reset_escapes.restype = ctypes.c_int
     return lib
 
 
@@ -68,19 +82,40 @@ def windows(s: int) -> list[tuple[int, int, int]]:
             for o in range(0, s, SEGMENT)]
 
 
-def launch_shape(s: int, device=None) -> tuple[int, int, int]:
+def launch_shape(s: int, rows: int = 1,
+                 device=None) -> tuple[int, int, int, int]:
     """(cluster size, dynamic shared memory of a block in bytes, clusters
-    resident at once) of the kernel at block size s on the card; raises
-    if the kernel does not take such blocks."""
-    cs, smem, clusters = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    resident at once, rounds over the windows) of the kernel's launch on
+    `rows` blocks of size s on the card; raises if the kernel does not
+    take such blocks."""
+    out = [ctypes.c_int() for _ in range(4)]
     with torch.cuda.device(device):
-        rc = _lib().ldrsx_match_v2_shape(s, ctypes.byref(cs),
-                                         ctypes.byref(smem),
-                                         ctypes.byref(clusters))
+        rc = _lib().ldrsx_match_v2_shape(s, rows,
+                                         *(ctypes.byref(x) for x in out))
     if rc != 0:
         raise RuntimeError(f"match_v2 kernel: no launch shape for blocks "
                            f"of {s} bytes (CUDA error {rc})")
-    return cs.value, smem.value, clusters.value
+    return tuple(x.value for x in out)
+
+
+def escapes(device=None) -> int:
+    """Windows of the kernel's launches on the card since the last
+    `reset_escapes` that took the sort by the whole word (a walk would
+    have passed WALK_CAP runs of other words); waits for the card."""
+    out = ctypes.c_ulonglong()
+    with torch.cuda.device(device):
+        rc = _lib().ldrsx_match_v2_escapes(ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"match_v2 escape count: CUDA error {rc}")
+    return out.value
+
+
+def reset_escapes(device=None) -> None:
+    """Set the card's count of escaped windows (`escapes`) to 0."""
+    with torch.cuda.device(device):
+        rc = _lib().ldrsx_match_v2_reset_escapes()
+    if rc != 0:
+        raise RuntimeError(f"match_v2 escape count: CUDA error {rc}")
 
 
 def find_matches_v2_cuda(data_padded: torch.Tensor, valid_len: torch.Tensor,

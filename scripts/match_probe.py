@@ -33,9 +33,17 @@ With --v2, the same for the L1-5 match kernel (`csrc/match_v2.cu`,
 `find_matches_v2` on the card) instead: held to its plain version and
 timed beside it and the byte bound on the L4 pass's 259 blocks of
 65,536 positions and on one L1 per-item pass's 16, with its launch
-shape; --versus then builds the `match_v2.cu` of each directory and
-times it in turns with the tree's, held equal. Every line names the
-card and is copied to FILE when given.
+shape (cluster size, clusters resident, rounds) and the windows that
+took its sort by the whole word; --versus then builds the `match_v2.cu`
+of each directory and times it in turns with the tree's, held equal.
+The stages of the first window of each library with the stamped entry
+(`ldrsx_match_v2_stamped`, its stage names from
+`ldrsx_match_v2_stage_names`) are printed in microseconds, mean of
+REPS calls: for the sort by hash the TMA wait, each radix pass's rank,
+local reorder, barrier, remote scatter and barrier, the neighbour
+compare with its scatter by position, the walks, the word sort of an
+escaped window and the output. Every line names the card and is copied
+to FILE when given.
 """
 
 import argparse
@@ -124,24 +132,36 @@ def caller(lib, kind: dict):
 
 def v2_caller(lib):
     """find_matches_v2-like callable (rows, valid, s) through a match_v2
-    library's C entry."""
+    library's C entry; with stamps= (a CUDA int64 tensor of one more word
+    than its stages) the stamped entry. Its `stages` attribute holds the
+    library's stage names, or None where it has no stamped entry."""
     import torch
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ldrsx_match_v2.argtypes = [p, i, i, i, p, p, p, p]
     lib.ldrsx_match_v2.restype = i
+    names = None
+    if hasattr(lib, "ldrsx_match_v2_stamped"):
+        lib.ldrsx_match_v2_stamped.argtypes = [p, i, i, i, p, p, p, p, p]
+        lib.ldrsx_match_v2_stamped.restype = i
+        lib.ldrsx_match_v2_stage_names.restype = ctypes.c_char_p
+        names = tuple(lib.ldrsx_match_v2_stage_names().decode().split(","))
 
-    def call(rows, valid, s):
+    def call(rows, valid, s, stamps=None):
         b, dev = rows.shape[0], rows.device
         ml = torch.empty((b, s), dtype=torch.int64, device=dev)
         dist = torch.empty((b, s), dtype=torch.int64, device=dev)
         valid32 = valid.to(torch.int32)
-        rc = lib.ldrsx_match_v2(rows.data_ptr(), b, rows.shape[1], s,
-                                valid32.data_ptr(), ml.data_ptr(),
-                                dist.data_ptr(),
-                                torch.cuda.current_stream(dev).cuda_stream)
+        args = [rows.data_ptr(), b, rows.shape[1], s, valid32.data_ptr(),
+                ml.data_ptr(), dist.data_ptr()]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if stamps is not None:
+            rc = lib.ldrsx_match_v2_stamped(*args, stamps.data_ptr(), stream)
+        else:
+            rc = lib.ldrsx_match_v2(*args, stream)
         if rc != 0:
             raise RuntimeError(f"match_v2 failed: CUDA error {rc}")
         return ml, dist
+    call.stages = names
     return call
 
 
@@ -197,6 +217,21 @@ def stages(fn, args, names, cluster: bool) -> str:
             f"{n} {v}" for n, v in zip(LISTS, sizes)) \
             + f" of {args[3] // 2} grid positions"
     return line
+
+
+def v2_stages(fn, args) -> str:
+    """The stages of the match_v2 kernel's first window (block 0 of the
+    first cluster), mean of REPS calls, in µs."""
+    import torch
+    names = fn.stages
+    stamps = torch.zeros((REPS, len(names) + 1), dtype=torch.int64,
+                         device="cuda")
+    for r in range(REPS):
+        fn(*args, stamps=stamps[r])
+    torch.cuda.synchronize()
+    us = (stamps[:, 1:] - stamps[:, :-1]).double().mean(0).cpu() / 1e3
+    return ", ".join(f"{name} {x:.1f}" for name, x in zip(names, us)) \
+        + f"; window {float(us.sum()):.1f} us"
 
 
 def probe(say, versus_dirs) -> int:
@@ -258,6 +293,7 @@ def probe_v2(say, versus_dirs) -> int:
     from libdeflate_rsx_tpu_torch.models import greedy_static as gs
     from libdeflate_rsx_tpu_torch.ops import _build
     from libdeflate_rsx_tpu_torch.ops.encode_v2 import find_matches_v2_plain
+    from libdeflate_rsx_tpu_torch.ops import match_v2 as mv2
     from libdeflate_rsx_tpu_torch.ops.match_v2 import launch_shape
 
     if not torch.cuda.is_available():
@@ -295,11 +331,16 @@ def probe_v2(say, versus_dirs) -> int:
             + f" ms per call (CUDA events, {REPS} calls each, in turns); "
             f"plain version {plain:.3f} ms on the card; bound "
             f"{nbytes / cs.HBM_BYTES_PER_MS:.6f} ms ({nbytes} bytes) [{card}]")
-    size, smem, clusters = launch_shape(s)
-    b = arr.shape[0]
-    say(f"  tree launch: clusters of {size} blocks ({smem} B of shared "
-        f"memory each), {clusters} resident at once, "
-        f"{-(-b // clusters)} rounds over the L4 pass's {b} windows")
+        size, smem, clusters, rounds = launch_shape(s, b)
+        mv2.reset_escapes()
+        tree(*args)
+        say(f"  tree launch: clusters of {size} blocks ({smem} B of shared "
+            f"memory each), {clusters} resident at once, {rounds} rounds "
+            f"over the {b} windows; {mv2.escapes()} windows sorted by the "
+            f"whole word")
+        for vlabel, fn in [("tree", tree)] + versus:
+            if fn.stages is not None:
+                say(f"  {vlabel} stages: {v2_stages(fn, args)}")
     return 0
 
 

@@ -957,7 +957,8 @@ def v2_cases(s: int, seed: int = 29):
     element of the sorted order), distances 32,767-32,769 and a nearest
     copy 32,769 back with an older one further (65,536 and up), and
     matches at the edges of the kernel's windows of a longer block
-    (past 65,536)."""
+    (past 65,536). Then the collision traps of the kernel's sort by a
+    16-bit hash of the word (`v2_collision_traps`)."""
     import numpy as np
 
     rng = np.random.default_rng(seed + s)
@@ -1028,6 +1029,110 @@ def v2_cases(s: int, seed: int = 29):
                      (98304 + 12, 32768)):
             plant(body, p, d, 12)
         add("window edges", body)
+    v2_collision_traps(s, rng, add, background)
     labels = [o[0] for o in out]
     return (labels, np.stack([o[1] for o in out]),
             np.array([o[2] for o in out], np.int32))
+
+
+def v2_hashes(row, first: int, n: int):
+    """The match kernel's 16-bit hash of the word at each position
+    [first, first + n) of a row: (w0 * HASH_MUL mod 2^32) >> 16."""
+    import numpy as np
+    from libdeflate_rsx_tpu_torch.ops.match_v2 import HASH_MUL
+
+    w = np.asarray(row[first:first + n + 3], np.int64)
+    word = w[:n] | w[1:n + 1] << 8 | w[2:n + 2] << 16 | w[3:n + 3] << 24
+    return ((word * HASH_MUL) & 0xFFFFFFFF) >> 16
+
+
+def v2_collider(h: int, low: int) -> bytes:
+    """The little-endian word whose hash is h, one for each low 16 bits
+    (by the inverse of HASH_MUL mod 2^32): distinct words of one hash."""
+    from libdeflate_rsx_tpu_torch.ops.match_v2 import HASH_MUL
+
+    w = (((h << 16) | low) * pow(HASH_MUL, -1, 1 << 32)) & 0xFFFFFFFF
+    return w.to_bytes(4, "little")
+
+
+def v2_collision_traps(s: int, rng, add, background) -> None:
+    """Blocks of s bytes for the sort by hash (where they fit), each
+    planted on a fresh background (bytes 16-255) at a hash that no other
+    position of the block has:
+    - a word A, then k distinct words of A's hash 8 bytes apart, a word of
+      the hash A's ^ 0x8000 and A again, for k = WALK_CAP - 1 (A's walk
+      passes WALK_CAP - 1 runs, then matches), WALK_CAP and WALK_CAP + 1
+      (a walk passes the cap: the window takes the sort by the whole
+      word; labelled "(escape)"); past 65,536 at 70,000, in two windows;
+    - a bucket across the cluster's chunks: words A, B, B, B, C of one
+      hash repeated 8 bytes apart (a walk passes a run of B's in one
+      step), the hash chosen so that the bucket spans the sorted index
+      where the second of 4 blocks (of 8: the third) starts, in the
+      block's first window;
+    - a colliding run longer than 32,768 (65,536 and up): 20 distinct
+      words of one hash every 2,000 bytes from 2,000 to 40,000, A at
+      1,000 and 33,769 (32,769 apart: no match) and, past 98,304, at
+      66,537 (32,768 after the second: a match)."""
+    import numpy as np
+    from libdeflate_rsx_tpu_torch.ops.match_v2 import WALK_CAP
+
+    def planted(words, tries=64):
+        """body, h: a background with words {position: f(h)} planted at
+        the first hash h (drawn from rng) that no other position has."""
+        for _ in range(tries):
+            h = int(rng.integers(0, 1 << 16))
+            body = background()
+            for p, make in words.items():
+                body[p:p + 4] = np.frombuffer(make(h), np.uint8)
+            row = np.concatenate([body, rng.integers(1, 256, 8,
+                                                     dtype=np.uint8)])
+            mine = sum(v2_hashes(np.frombuffer(make(h), np.uint8), 0, 1)[0]
+                       == h for make in words.values())
+            if (v2_hashes(row, 0, s) == h).sum() == mine:
+                return body
+        raise AssertionError("no free hash for a collision trap")
+
+    if s >= 1021:
+        base = 70000 if s > 65536 else min(100, s // 4) if s < 16384 \
+            else s // 2
+        for k in (WALK_CAP - 1, WALK_CAP, WALK_CAP + 1):
+            words = {base: lambda h: v2_collider(h, 7)}
+            for j in range(1, k + 1):
+                words[base + 8 * j] = (lambda j: lambda h:
+                                       v2_collider(h, 100 + j))(j)
+            words[base + 8 * (k + 1)] = lambda h: v2_collider(h ^ 0x8000, 5)
+            words[base + 8 * (k + 2)] = lambda h: v2_collider(h, 7)
+            add(f"{k} colliding words between copies"
+                + (" (escape)" if k >= WALK_CAP else ""), planted(words))
+        # a bucket across the chunks of the first window's sorted list
+        n = min(s, 65536)
+        chunk = ((n + 3) // 4 + 31) // 32 * 32
+        count = min(600, n // 16)
+        base = min(5000, n // 8)
+        cycle = (1, 2, 2, 2, 3)
+        h = chunk * 65536 // n
+        for _ in range(40):
+            body = background()
+            for j in range(count):
+                body[base + 8 * j:base + 8 * j + 4] = np.frombuffer(
+                    v2_collider(h, cycle[j % 5]), np.uint8)
+            row = np.concatenate([body, rng.integers(1, 256, 8,
+                                                     dtype=np.uint8)])
+            hs = v2_hashes(row, 0, n)
+            below, at = int((hs < h).sum()), int((hs == h).sum())
+            if at == count and below < chunk < below + at \
+                    and abs(chunk - below - count // 2) < count // 4:
+                break
+            h += max(1, abs(chunk - count // 2 - below) * 65536 // n) \
+                * (1 if below < chunk - count // 2 else -1)
+        else:
+            raise AssertionError("no hash puts the bucket across the chunks")
+        add("a bucket across the cluster's chunks", body)
+    if s >= 65536:
+        words = {1000: lambda h: v2_collider(h, 9),
+                 33769: lambda h: v2_collider(h, 9)}
+        if s > 98304:
+            words[66537] = lambda h: v2_collider(h, 9)
+        for j, p in enumerate(range(2000, 40001, 2000)):
+            words[p] = (lambda j: lambda h: v2_collider(h, 200 + j))(j)
+        add("a colliding run longer than 32768", planted(words))

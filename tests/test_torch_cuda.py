@@ -673,14 +673,17 @@ def test_match_l6_kernel_empty_batch_and_guards(card):
 
 
 # ---------------------------------------------------- L1-5 match finder
-def _v2_equal(rows, valid, s):
+def _v2_equal(rows, valid, s) -> int:
     """The L1-5 match kernel (one launch) against its plain version on the
-    same card tensors: ml and dist equal, int64 (B, s)."""
+    same card tensors: ml and dist equal, int64 (B, s). Returns the
+    windows of the launch that took the sort by the whole word."""
     from libdeflate_rsx_tpu_torch.ops import match_v2 as mv2
     from libdeflate_rsx_tpu_torch.ops.encode_v2 import (find_matches_v2,
                                                         find_matches_v2_plain)
 
     before = mv2.LAUNCHES
+    if rows.shape[0]:
+        mv2.reset_escapes(rows.device)
     got = find_matches_v2(rows, valid, s)
     assert mv2.LAUNCHES == before + (rows.shape[0] > 0)
     want = find_matches_v2_plain(rows, valid, s)
@@ -688,6 +691,11 @@ def _v2_equal(rows, valid, s):
     for g, w in zip(got, want):
         assert g.device.type == "cuda" and g.dtype == torch.int64
         assert g.shape == (rows.shape[0], s) and torch.equal(g, w)
+    return mv2.escapes(rows.device) if rows.shape[0] else 0
+
+
+def _v2_escaping(labels) -> int:
+    return sum("(escape)" in x for x in labels)
 
 
 @pytest.mark.parametrize("s", V2_SIZES)
@@ -696,10 +704,57 @@ def test_match_v2_kernel_equals_plain_on_trap_blocks(card, s):
     the dist kept past the cap, non-zero padding, the first sorted
     element, one repeated byte, distances 32,767-32,769, valid_len 0-8,
     a short last block, w1 in byte 0-3, sizes off the cluster's chunk,
-    the windows of a block past 65,536."""
-    _, rows, valid = v2_cases(s)
-    _v2_equal(torch.from_numpy(rows).to(card),
-              torch.from_numpy(valid).to(card), s)
+    the windows of a block past 65,536, the collision traps of the sort
+    by hash. Only the escape traps' windows take the sort by the whole
+    word (two windows each past 65,536)."""
+    labels, rows, valid = v2_cases(s)
+    esc = _v2_equal(torch.from_numpy(rows).to(card),
+                    torch.from_numpy(valid).to(card), s)
+    assert esc == _v2_escaping(labels) * (2 if s > 65536 else 1)
+
+
+@pytest.mark.parametrize("s", V2_SIZES)
+def test_match_v2_kernel_equals_plain_on_trap_blocks_in_8_block_clusters(
+        card, s):
+    """The same trap blocks in batches small enough for one round of
+    8-block clusters, the shape an L1 pass of few blocks takes."""
+    from libdeflate_rsx_tpu_torch.ops import match_v2 as mv2
+
+    labels, rows, valid = v2_cases(s)
+    per_row = len(mv2.windows(s))
+    size, _, clusters, _ = mv2.launch_shape(s, 1, card)
+    assert size == 8
+    step = max(1, clusters // per_row)
+    esc = 0
+    for i in range(0, len(labels), step):
+        assert mv2.launch_shape(s, len(labels[i:i + step]), card)[0] == 8
+        esc += _v2_equal(torch.from_numpy(rows[i:i + step]).to(card),
+                         torch.from_numpy(valid[i:i + step]).to(card), s)
+    assert esc == _v2_escaping(labels) * (2 if s > 65536 else 1)
+
+
+@pytest.mark.parametrize("s", [1021, 65536, 100000])
+def test_match_v2_kernel_equals_plain_on_trap_blocks_in_6_block_clusters(
+        card, s):
+    """The trap blocks in batches of one window more than the resident
+    8-block clusters hold (an L1 pass of 16 blocks on an H100): the
+    launch takes 6-block clusters in one round."""
+    from libdeflate_rsx_tpu_torch.ops import match_v2 as mv2
+
+    labels, rows, valid = v2_cases(s)
+    per_row = len(mv2.windows(s))
+    step = mv2.launch_shape(s, 1, card)[2] // per_row + 1
+    size, _, clusters, rounds = mv2.launch_shape(s, step, card)
+    assert size == 6 and rounds == 1
+    # every block in a batch of `step`, the last batch ending at the end
+    starts = sorted(set(range(0, len(labels) - step, step))
+                    | {len(labels) - step})
+    esc = want = 0
+    for i in starts:
+        esc += _v2_equal(torch.from_numpy(rows[i:i + step]).to(card),
+                         torch.from_numpy(valid[i:i + step]).to(card), s)
+        want += _v2_escaping(labels[i:i + step]) * (2 if s > 65536 else 1)
+    assert esc == want and want > 0
 
 
 @pytest.mark.parametrize("block", [16384, 65536, 262144])
@@ -712,8 +767,8 @@ def test_match_v2_kernel_equals_plain_on_flow_rows(card, kind, block):
 
     data = make_corpus(kind, 3 * block + 777, seed=len(kind))
     arr, valid, _, _ = gs.split_blocks(data, block)
-    _v2_equal(torch.from_numpy(arr).to(card),
-              torch.from_numpy(valid).to(card).long(), block)
+    assert _v2_equal(torch.from_numpy(arr).to(card),
+                     torch.from_numpy(valid).to(card).long(), block) == 0
 
 
 def test_match_v2_kernel_more_windows_than_clusters(card):
@@ -722,13 +777,15 @@ def test_match_v2_kernel_more_windows_than_clusters(card):
     from libdeflate_rsx_tpu_torch.ops import match_v2 as mv2
 
     s = 65536
-    size, smem, clusters = mv2.launch_shape(s, card)
-    assert size == 4 and 0 < smem <= 232448 and clusters >= 1
-    _, rows, valid = v2_cases(s)
+    labels, rows, valid = v2_cases(s)
+    clusters = mv2.launch_shape(s, rows.shape[0], card)[2]
     reps = -(-(clusters + 5) // rows.shape[0])
     rows = np.concatenate([np.roll(rows, 7 * k, axis=1) for k in range(reps)])
-    _v2_equal(torch.from_numpy(rows).to(card),
-              torch.from_numpy(np.tile(valid, reps)).to(card), s)
+    size, smem, clusters, rounds = mv2.launch_shape(s, rows.shape[0], card)
+    assert size == 4 and 0 < smem <= 232448 and clusters >= 1 and rounds >= 2
+    esc = _v2_equal(torch.from_numpy(rows).to(card),
+                    torch.from_numpy(np.tile(valid, reps)).to(card), s)
+    assert esc >= _v2_escaping(labels)
 
 
 def test_match_v2_kernel_empty_batch_and_guards(card):
