@@ -6,9 +6,9 @@ Usage: python3 chip_smoke.py      (from the root of a checkout; one card)
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
-2. build: the ten CUDA kernel sources (pass 1, inflate_v2,
+2. build: the eleven CUDA kernel sources (pass 1, inflate_v2,
    inflate_static, dyn_tables, assemble_rows, resolve, match_l6,
-   match_v2, select, emit), from
+   match_v2, select, emit, checksums), from
    csrc/ with one nvcc each, all started together (build/kernels/);
 3. pass 1 (the segment route's kernels) against its plain PyTorch
    version, both on the card, at the 64 KiB out_cap: zlib streams of
@@ -85,9 +85,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    inflate_device_static on the first 128 L1 slices within its input
    cap, byte-exact, inflate_static launched; the same rows held to its
    plain version word for word;
-17. the device checksums: crc32_device and adler32_device of the whole
-   corpus, crc32_blocks and adler32_blocks of its 64 KiB blocks, equal
-   to zlib, timed;
+17. the device checksums through the checksum kernel: crc32_device and
+   adler32_device of the whole corpus (two walls on the host clock, the
+   first the kernel path's first call of the process), crc32_blocks and
+   adler32_blocks of its 64 KiB blocks, equal to zlib, timed;
 18. the memory budget of one device pass (budget.py): the one-pass peak
    (torch.cuda.max_memory_allocated) per unit byte of the static, L4
    and L6 compress tiers and of the two-pass decode (resolve on the
@@ -99,7 +100,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 19. ShardedCompressor at NCCL world size 1 on the corpus: the static
    tier in the three formats, the dynamic tier and the static
    compress_batch over the items, equal to the single-card tiers and
-   round-tripping through zlib; walls and collective times;
+   round-tripping through zlib; walls and collective times; the
+   checksum kernel's launches counted from 0 over it: 2 a budget pass
+   (crc32_blocks and adler32_blocks) in each of the static zlib and
+   gzip runs, none in the others (its record's launches);
 20. N_RANKS gloo ranks on the one card, child processes of this script
    (`--gloo-rank`) with a timeout: the same bytes as phase 19, and
    compress_global in gzip gunzips to the corpus; then the first 16 KiB
@@ -196,12 +200,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    logged; then timed on the L4 pass (the record) beside the plain
    version on the card, and on the L1 pass; the bound counts each
    block's bytes and the 7 its last words read, valid_len, and int64
-   (ml, dist) out.
+   (ml, dist) out;
+30. the checksum kernel (csrc/checksums.cu: CRC-32 and Adler-32 of rows
+   or of one buffer) against its plain versions on the card: the
+   corpus's 259 rows of 64 KiB with int32 lengths (phase 19's call),
+   the trap rows of tests/_port_corpus.py (checksum_rows at widths
+   1,024, 5,120 and 65,536: every span boundary +-1, the head and tail
+   lengths, all-0x00 and all-0xFF rows; int32 and int64 lengths) and
+   its trap buffers (checksum_buffers, 1 MiB + 3 bytes among them) at
+   its trap initial values, the whole corpus with and without an
+   initial value: every register equal, and equal to zlib; then
+   crc32_blocks and adler32_blocks timed on the corpus's rows beside
+   their plain versions on the card (the record: the pair summed; the
+   bound the bytes each call must move: the corpus bytes, the int32
+   lengths and the int64 registers).
 
 Phases 13-21 drive the level 0-5 tiers, the checksums, the memory
-budget and the sharded paths, the port's modules with no kernel of
-their own; the kernels' launches there are logged and asserted, and
-their records stay those of phases 3-12, 22-26, 28 and 29.
+budget and the sharded paths; the kernels' launches there are logged
+and asserted, and their records stay those of phases 3-12, 22-26 and
+28-30.
 Each kernel's record (ms, plain_ms, bound_ms) is taken on its path's
 own inputs, where every input and output byte is needed: the bound is
 those bytes over the card's memory rate. The last two lines are the
@@ -247,7 +264,7 @@ N_STATIC = 128          # Z_FIXED slices through inflate_device_static
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM device memory, 3.35 TB/s
 KERNELS = ("inflate_tokens", "inflate_v2", "inflate_static", "dyn_tables",
            "assemble_rows", "resolve", "match_l6", "match_v2", "select",
-           "emit")
+           "emit", "checksums")
 TIER_LEVELS = (0, 1, 4)     # the stored, static and dynamic compress tiers
 N_CPU_ITEMS = 2             # items also compressed with device="cpu"
 BUDGET_OVER = 1.2           # phases 18, 20: one-pass need / card memory
@@ -911,6 +928,7 @@ def phase_compress_tiers(data: bytes):
     import torch
     from libdeflate_rsx_tpu_torch import BatchCompressor
     from libdeflate_rsx_tpu_torch.ops import assemble as asm
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
     from libdeflate_rsx_tpu_torch.ops import dyn_tables as dtab
     from libdeflate_rsx_tpu_torch.ops import emit as em
     from libdeflate_rsx_tpu_torch.ops import match_v2 as mv2
@@ -1062,7 +1080,9 @@ def phase_static_tier(data: bytes, tier_slices):
 
 def phase_checksums(data: bytes):
     """crc32_device and adler32_device of the corpus, crc32_blocks and
-    adler32_blocks of its 64 KiB blocks: equal to zlib, timed."""
+    adler32_blocks of its 64 KiB blocks, through the checksum kernel:
+    equal to zlib, timed (each device call's first wall is the process's
+    first call of the kernel path)."""
     import numpy as np
     import torch
     from libdeflate_rsx_tpu_torch.ops import checksums as ck
@@ -1077,8 +1097,9 @@ def phase_checksums(data: bytes):
             walls.append(time.perf_counter() - t0)
         assert got == ref(data), f"{name} != zlib"
         log(f"{name} of the corpus ({len(data)} bytes): equal to zlib; "
-            f"wall {walls[0] * 1e3:.1f} ms, again {walls[1] * 1e3:.1f} ms "
-            f"(host clock, bytes to the card included)")
+            f"wall {walls[0] * 1e3:.1f} ms (the process's first call of "
+            f"the checksum kernel), again {walls[1] * 1e3:.1f} ms (host "
+            f"clock, bytes to the card included)")
     nblk = -(-len(data) // SLICE)
     arr = np.zeros(nblk * SLICE, np.uint8)
     arr[:len(data)] = np.frombuffer(data, np.uint8)
@@ -1236,12 +1257,15 @@ def phase_budget_over(items, singles, coefs, card: str):
     torch.cuda.empty_cache()
 
 
-def sharded_compress(data: bytes, items, device) -> tuple[dict, dict]:
+def sharded_compress(data: bytes, items, device,
+                     launches=None) -> tuple[dict, dict]:
     """ShardedCompressor on the corpus: the static tier in the three
     formats, the dynamic tier in deflate and the static compress_batch
     over the items; every output through zlib. Returns ({name: bytes},
-    {name: (wall s, collective s)})."""
+    {name: (wall s, collective s)}); fills `launches` with {name:
+    checksum kernel launches} when given."""
     import torch
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
     from libdeflate_rsx_tpu_torch.parallel import ShardedCompressor
 
     static = ShardedCompressor(device=device)
@@ -1252,11 +1276,14 @@ def sharded_compress(data: bytes, items, device) -> tuple[dict, dict]:
     runs["static batch"] = (lambda: static.compress_batch(items), static)
     outs, times = {}, {}
     for name, (fn, sc) in runs.items():
+        before = ck.LAUNCHES
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs[name] = fn()
         torch.cuda.synchronize()
         times[name] = (time.perf_counter() - t0, sc.collective_seconds)
+        if launches is not None:
+            launches[name] = ck.LAUNCHES - before
     for f in ("deflate", "zlib", "gzip"):
         got = {"deflate": lambda b: zlib.decompress(b, -15),
                "zlib": zlib.decompress,
@@ -1301,18 +1328,33 @@ def digests(outs: dict) -> dict:
             .hexdigest() for k, v in outs.items()}
 
 
-def phase_sharded_nccl(data: bytes, items, card: str) -> dict:
+def phase_sharded_nccl(data: bytes, items, card: str) -> tuple[dict, int]:
     """Phase 19: ShardedCompressor at NCCL world size 1 on the corpus;
     the static payload equal to deflate_device_static, the dynamic one
-    to deflate_device_dynamic, the batch to the items' static encodes.
-    Returns the outputs' digests."""
+    to deflate_device_dynamic, the batch to the items' static encodes;
+    the static zlib and gzip compress each launch the checksum kernel
+    twice a pass (crc32_blocks and adler32_blocks), the other runs not
+    at all. Returns the outputs' digests and the checksum kernel's
+    launches on the static zlib and gzip compress."""
+    from libdeflate_rsx_tpu_torch import budget
     from libdeflate_rsx_tpu_torch.models import greedy_dynamic as gd
     from libdeflate_rsx_tpu_torch.models import greedy_static as gs
+    from libdeflate_rsx_tpu_torch.ops.encode_v2 import BLOCK_PAD
     from libdeflate_rsx_tpu_torch.parallel import multihost
 
     multihost.initialize(multihost.file_rendezvous(tempfile.mkdtemp()), 1,
                          0, backend="nccl")
-    outs, times = sharded_compress(data, items, "cuda")
+    launches = {}
+    outs, times = sharded_compress(data, items, "cuda", launches)
+    nblk = -(-len(data) // SLICE)
+    passes = len(budget.passes("static", [SLICE + BLOCK_PAD] * nblk, "cuda"))
+    framed = launches["static zlib"] + launches["static gzip"]
+    assert framed == 2 * passes * 2 and launches["static zlib"] == \
+        launches["static gzip"] and framed == sum(launches.values()), \
+        f"checksum kernel launches {launches} in {passes} passes"
+    log(f"checksum kernel launches on the sharded static zlib and gzip "
+        f"compress: {framed} ({passes} pass(es) each, crc32_blocks and "
+        f"adler32_blocks a pass; none in the other runs)")
     assert outs["static deflate"] == gs.deflate_device_static(
         data, device="cuda"), "sharded static != deflate_device_static"
     assert outs["dynamic deflate"] == gd.deflate_device_dynamic(
@@ -1323,7 +1365,7 @@ def phase_sharded_nccl(data: bytes, items, card: str) -> dict:
         log(f"sharded NCCL x1 {name}: {sum(map(len, items))} bytes, "
             f"equal to the single-card tier, round-trips through zlib; "
             f"wall {wall:.3f} s, collectives {coll * 1e3:.2f} ms [{card}]")
-    return digests(outs)
+    return digests(outs), framed
 
 
 def phase_sharded_decode_nccl(slices, chunks, card: str) -> None:
@@ -2246,6 +2288,119 @@ def phase_v2_match_kernel(items, card: str):
                   plain_ms, v2_bytes(arr, SLICE))
 
 
+def checksum_vs_plain(kernel, plain, args, label: str) -> int:
+    """The kernel and its plain version on the card on the same inputs:
+    equal, or the phase fails. Returns the max abs difference (0)."""
+    got, want = kernel(*args), plain(*args)
+    assert got.shape == want.shape, f"checksums on {label}: shapes differ"
+    err = int((got - want).abs().max()) if got.numel() else 0
+    assert err == 0, f"checksums on {label}: kernel != plain (max abs " \
+        f"err {err})"
+    return err
+
+
+def phase_checksum_kernel(data: bytes, card: str):
+    """Phase 30: the checksum kernel (csrc/checksums.cu) against its plain
+    versions on the card: crc32_blocks and adler32_blocks on the corpus's
+    64 KiB rows with their int32 lengths (the sharded static tier's
+    call) and on the trap rows of tests/_port_corpus.py (every span
+    boundary +-1, the head and tail lengths, all-0x00 and all-0xFF rows;
+    int32 and int64 lengths); crc32_fixed and adler32_fixed on the trap
+    buffers at every trap initial value and on the whole corpus, with
+    and without an initial value (crc32_device and adler32_device equal
+    to zlib); then each of crc32_blocks and adler32_blocks timed on the
+    corpus's rows beside its plain version. The record is the pair as
+    the sharded path calls it: ms and plain_ms summed, the bound the
+    bytes each of the two calls must move (the corpus bytes, the int32
+    lengths, the int64 registers)."""
+    import numpy as np
+    import torch
+    from _port_corpus import (CHECKSUM_INITS, CHECKSUM_WIDTHS,
+                              checksum_buffers, checksum_rows)
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
+
+    pairs = (("crc32_blocks", ck.crc32_blocks, ck.crc32_blocks_plain,
+              zlib.crc32),
+             ("adler32_blocks", ck.adler32_blocks, ck.adler32_blocks_plain,
+              zlib.adler32))
+    nblk = -(-len(data) // SLICE)
+    arr = np.zeros(nblk * SLICE, np.uint8)
+    arr[:len(data)] = np.frombuffer(data, np.uint8)
+    rows = torch.from_numpy(arr.reshape(nblk, SLICE)).cuda()
+    lengths = torch.tensor([min(SLICE, len(data) - i * SLICE)
+                            for i in range(nblk)], dtype=torch.int32,
+                           device="cuda")
+    blocks = [data[i * SLICE:(i + 1) * SLICE] for i in range(nblk)]
+    err = 0
+    for name, kernel, plain, ref in pairs:
+        err = max(err, checksum_vs_plain(kernel, plain, (rows, lengths),
+                                         f"the corpus's {nblk} rows"))
+        assert kernel(rows, lengths).cpu().tolist() == \
+            [ref(b) for b in blocks], f"{name} != zlib"
+    ntrap = 0
+    for width in CHECKSUM_WIDTHS:
+        trap, lens = checksum_rows(width)
+        t = torch.from_numpy(trap).cuda()
+        for n in (torch.from_numpy(lens).cuda(),
+                  torch.from_numpy(lens.astype(np.int32)).cuda()):
+            for name, kernel, plain, ref in pairs:
+                err = max(err, checksum_vs_plain(
+                    kernel, plain, (t, n), f"the trap rows at {width}"))
+        for name, kernel, plain, ref in pairs:
+            assert kernel(t, n).cpu().tolist() == \
+                [ref(r[:k].tobytes()) for r, k in zip(trap, lens)], \
+                f"{name} on the trap rows at {width} != zlib"
+        ntrap += len(trap)
+    fixed = (("crc32_fixed", ck.crc32_fixed, ck.crc32_fixed_plain,
+              zlib.crc32),
+             ("adler32_fixed", ck.adler32_fixed, ck.adler32_fixed_plain,
+              zlib.adler32))
+    bufs = checksum_buffers() + [data]
+    for buf in bufs:
+        t = ck._padded(buf, ck.CRC_CHUNK, "cuda")
+        inits = CHECKSUM_INITS if len(buf) < len(data) else (0, 1,
+                                                             0xFFF0FFF0)
+        for init in inits:
+            for name, kernel, plain, ref in fixed:
+                err = max(err, checksum_vs_plain(
+                    kernel, plain, (t, len(buf), init),
+                    f"a buffer of {len(buf)} bytes from {init:#x}"))
+                assert int(kernel(t, len(buf), init)) == ref(buf, init), \
+                    f"{name} of {len(buf)} bytes from {init:#x} != zlib"
+    a, b = data[:len(data) // 3], data[len(data) // 3:]
+    assert ck.crc32_device(b, zlib.crc32(a)) == zlib.crc32(data)
+    assert ck.adler32_device(b, zlib.adler32(a)) == zlib.adler32(data)
+    log(f"checksums kernel on the corpus's {nblk} rows, {ntrap} trap rows "
+        f"at widths {CHECKSUM_WIDTHS} (int32 and int64 lengths), "
+        f"{len(bufs)} buffers (the corpus among them) at their initial "
+        f"values: equal to the plain versions and to zlib (max abs err "
+        f"{err})")
+    nbytes = len(data) + 4 * nblk + 8 * nblk
+    ms = plain_ms = 0.0
+    for name, kernel, plain, _ in pairs:
+        k_ms = time_cuda(lambda: kernel(rows, lengths), KERNEL_REPS)
+        p_ms = time_cuda(lambda: plain(rows, lengths), KERNEL_REPS)
+        dev = kernel_times(lambda: kernel(rows, lengths), KERNEL_REPS)
+        log(f"{name} on the corpus's {nblk} rows of 64 KiB: kernel "
+            f"{k_ms:.4f} ms, plain version {p_ms:.3f} ms on the card (CUDA "
+            f"events, {KERNEL_REPS} calls each, the rows warm in L2); bound "
+            f"{nbytes / HBM_BYTES_PER_MS:.6f} ms ({nbytes} bytes); device "
+            f"µs a call (torch.profiler): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(dev.items()))
+            + f" [{card}]")
+        ms, plain_ms = ms + k_ms, plain_ms + p_ms
+    for name, fn in (("crc32_device", ck.crc32_device),
+                     ("adler32_device", ck.adler32_device)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(data)
+        log(f"{name} of the corpus ({len(data)} bytes): wall "
+            f"{(time.perf_counter() - t0) * 1e3:.2f} ms (host clock, the "
+            f"copy to the card included) [{card}]")
+    return record("checksums", "ops/checksums.py:258", err, ms, plain_ms,
+                  2 * nbytes)
+
+
 def phase_resolve_tokens(slices, chunks, rec_rs: dict, card: str) -> None:
     """Phase 27a: ops.resolve.resolve_tokens_device on pass 1's token
     columns of the 256 zlib-6 slices at the 64 KiB out_cap, on the card:
@@ -2386,6 +2541,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     from libdeflate_rsx_tpu_torch.ops import assemble as asm
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
     from libdeflate_rsx_tpu_torch.ops import dyn_tables as dtab
     from libdeflate_rsx_tpu_torch.ops import emit as em
     from libdeflate_rsx_tpu_torch.ops import inflate_static as st
@@ -2488,7 +2644,8 @@ def main() -> int:
     log(f"phase 18 (the memory budget): "
         f"{time.perf_counter() - t_shard:.1f} s")
     t_shard = time.perf_counter()
-    expect = phase_sharded_nccl(data, items, card)
+    ck.LAUNCHES = 0                     # the sharded compress starts here
+    expect, launches_ck = phase_sharded_nccl(data, items, card)
     it.LAUNCHES = 0                     # the sharded decode starts here
     phase_sharded_decode_nccl(slices, chunks, card)
     launches_shard = it.LAUNCHES
@@ -2538,6 +2695,11 @@ def main() -> int:
     rec_v2m["launches"] = launches_v2m
     log(f"phase 29 (the L1-5 match kernel): "
         f"{time.perf_counter() - t_tail:.1f} s")
+    t_tail = time.perf_counter()
+    rec_ck = phase_checksum_kernel(data, card)
+    rec_ck["launches"] = launches_ck
+    log(f"phase 30 (the checksum kernel): "
+        f"{time.perf_counter() - t_tail:.1f} s")
     assert "jax" not in sys.modules, "the port imported jax"
     assert not any(m.split(".")[0] == "libdeflate_rsx_tpu"
                    for m in sys.modules), "the port imported the JAX package"
@@ -2546,7 +2708,7 @@ def main() -> int:
     log(card)
     print(json.dumps({"kernels": [rec, rec_v2, rec_st, rec_dt, rec_asm,
                                   rec_rs, rec_ml6, rec_sl, rec_em,
-                                  rec_v2m]}))
+                                  rec_v2m, rec_ck]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

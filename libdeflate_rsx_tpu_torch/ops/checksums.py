@@ -3,7 +3,15 @@
 Port of `libdeflate_rsx_tpu/ops/checksums.py`. The JAX package computes
 the CRC's GF(2) products and the Adler sums as float matmuls, exact on
 its matrix unit. Here every step is integer, so the result is exact
-whatever the process's matmul precision (TF32, bf16):
+whatever the process's matmul precision (TF32, bf16).
+
+`crc32_fixed`, `crc32_blocks`, `adler32_fixed` and `adler32_blocks` take
+the CUDA kernel (`csrc/checksums.cu`: a thread block a row, each thread
+over a contiguous span by slice-by-8 or the running Adler sums, the
+spans folded in order; one buffer as rows of 64 KiB folded by a second,
+one-block launch) for CUDA tensors and their plain versions, the
+`*_plain` functions below, for CPU tensors. The plain versions, in
+plain PyTorch:
 
 - **CRC-32.** The register is GF(2)-linear in the message, so the
   zero-init register of a CRC_CHUNK-byte chunk is the XOR over its bytes
@@ -22,11 +30,13 @@ uint32 values are held in int64.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
+from . import _build
 from .checksum_math import (
     ADLER_MOD,
     CRC_TABLE,
@@ -39,6 +49,10 @@ CRC_CHUNK = 1024          # bytes per chunk register
 ADLER_CHUNK = 128         # bytes per Adler partial sum
 _MASK32 = 0xFFFFFFFF
 _I64 = torch.int64
+
+#: C calls made by the dispatchers on CUDA tensors (the plain versions do
+#: not count)
+LAUNCHES = 0
 
 
 # -- host-built constants -----------------------------------------------------
@@ -151,7 +165,7 @@ def _fold(regs: torch.Tensor) -> tuple[torch.Tensor, int]:
 # -- CRC-32 -------------------------------------------------------------------
 
 
-def crc32_fixed(data: torch.Tensor, length: int, crc_in: int = 0):
+def crc32_fixed_plain(data: torch.Tensor, length: int, crc_in: int = 0):
     """CRC-32 of data[:length] continuing from crc_in. data (N,) uint8,
     zero-padded to a multiple of CRC_CHUNK. Returns a 0-dim int64
     tensor."""
@@ -171,7 +185,8 @@ def crc32_fixed(data: torch.Tensor, length: int, crc_in: int = 0):
     return reg[0] ^ _MASK32
 
 
-def crc32_blocks(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+def crc32_blocks_plain(data: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
     """CRC-32 of each row's first lengths[b] bytes. data (B, S) uint8
     with S a multiple of CRC_CHUNK, rows zero-padded; lengths (B,).
     The padding is undone by applying the inverse shift for each set bit
@@ -214,7 +229,8 @@ def _adler_combine(s1_c, j_c, n, s1_in, s2_in):
     return (s2 << 16) | s1
 
 
-def adler32_fixed(data: torch.Tensor, length: int, adler_in: int = 1):
+def adler32_fixed_plain(data: torch.Tensor, length: int,
+                        adler_in: int = 1):
     """Adler-32 of data[:length] continuing from adler_in. data (N,)
     uint8, zero-padded to a multiple of ADLER_CHUNK. Returns a 0-dim
     int64 tensor."""
@@ -230,7 +246,8 @@ def adler32_fixed(data: torch.Tensor, length: int, adler_in: int = 1):
     return _adler_combine(s1_c, j_c, nt, adler_in & 0xFFFF, adler_in >> 16)
 
 
-def adler32_blocks(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+def adler32_blocks_plain(data: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
     """Adler-32 of each row's first lengths[b] bytes (rows zero-padded:
     zero bytes add nothing to s1, and the weights use the true length).
     data (B, S) uint8 with S a multiple of ADLER_CHUNK. Returns (B,)
@@ -240,6 +257,136 @@ def adler32_blocks(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
                          f"{ADLER_CHUNK}")
     s1_c, j_c = _adler_sums(data)
     return _adler_combine(s1_c, j_c, lengths.to(_I64), 1, 0)
+
+
+# -- the CUDA kernel and the dispatchers --------------------------------------
+
+_CRC, _ADLER = 0, 1
+_BUFFER_ROW = 65536       # bytes a row of one buffer in the kernel
+
+
+def _kernel(name: str):
+    return _bind(_build.load("checksums"), name)
+
+
+def _bind(lib, name: str):
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        if name == "ldrsx_checksum_rows":
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                           ctypes.c_int64, ctypes.c_int64] \
+                + [ctypes.c_void_p] * 3
+        else:
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                           ctypes.c_uint32] + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_bytes(data: torch.Tensor, ndim: int, name: str) -> None:
+    if data.dtype != torch.uint8 or data.dim() != ndim:
+        raise ValueError(f"{name}: data must be a {ndim}-D uint8 tensor, "
+                         f"not {data.dim()}-D {data.dtype}")
+
+
+def _launch(name: str, *args, device) -> None:
+    global LAUNCHES
+    with torch.cuda.device(device):
+        rc = _kernel(name)(*args, torch.cuda.current_stream(device)
+                           .cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"checksums kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+
+
+def _buffer(kind: int, data: torch.Tensor, n: int, init: int):
+    """The kernel over data[:n] (1-D uint8 on the card, n > 0) as rows
+    of _BUFFER_ROW bytes, folded from `init`: a 0-dim int64 tensor."""
+    data = data.contiguous()
+    regs = torch.empty(-(-n // _BUFFER_ROW), dtype=_I64, device=data.device)
+    out = torch.empty((), dtype=_I64, device=data.device)
+    _launch("ldrsx_checksum_buffer", kind, data.data_ptr(), n,
+            init & _MASK32, regs.data_ptr(), out.data_ptr(),
+            device=data.device)
+    return out
+
+
+def _rows(kind: int, data: torch.Tensor, lengths: torch.Tensor, chunk: int,
+          name: str) -> torch.Tensor:
+    """The kernel over the rows of data (B, S) uint8 on the card, each
+    cut at its length: (B,) int64. A row view whose bytes are not
+    adjacent is copied; rows at any stride are read in place."""
+    _check_bytes(data, 2, name)
+    b, s = data.shape
+    if s % chunk:
+        raise ValueError(f"row width {s} is not a multiple of {chunk}")
+    if lengths.shape != (b,) or lengths.device != data.device:
+        raise ValueError(f"{name}: lengths of shape {tuple(lengths.shape)} "
+                         f"on {lengths.device}; want ({b},) on "
+                         f"{data.device}")
+    if data.stride(1) != 1:
+        data = data.contiguous()
+    n = lengths.to(_I64).contiguous()
+    out = torch.empty(b, dtype=_I64, device=data.device)
+    if b:
+        _launch("ldrsx_checksum_rows", kind, data.data_ptr(), data.stride(0),
+                b, s, n.data_ptr(), out.data_ptr(), device=data.device)
+    return out
+
+
+def crc32_fixed(data: torch.Tensor, length: int, crc_in: int = 0):
+    """CRC-32 of data[:length] continuing from crc_in. data (N,) uint8,
+    zero-padded to a multiple of CRC_CHUNK. Returns a 0-dim int64
+    tensor. CUDA tensors take the kernel, CPU tensors
+    `crc32_fixed_plain`."""
+    if data.device.type == "cpu":
+        return crc32_fixed_plain(data, length, crc_in)
+    _check_bytes(data, 1, "crc32_fixed")
+    n = int(length)
+    if n == 0:
+        return torch.tensor(crc_in & _MASK32, dtype=_I64, device=data.device)
+    if data.shape[0] % CRC_CHUNK or data.shape[0] < n:
+        raise ValueError(f"data of {data.shape[0]} bytes is not {n} bytes "
+                         f"padded to a multiple of {CRC_CHUNK}")
+    return _buffer(_CRC, data, n, crc_in)
+
+
+def crc32_blocks(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """CRC-32 of each row's first lengths[b] bytes. data (B, S) uint8
+    with S a multiple of CRC_CHUNK, rows zero-padded; lengths (B,) of
+    any integer type. Returns (B,) int64. CUDA tensors take the kernel,
+    CPU tensors `crc32_blocks_plain`."""
+    if data.device.type == "cpu":
+        return crc32_blocks_plain(data, lengths)
+    return _rows(_CRC, data, lengths, CRC_CHUNK, "crc32_blocks")
+
+
+def adler32_fixed(data: torch.Tensor, length: int, adler_in: int = 1):
+    """Adler-32 of data[:length] continuing from adler_in. data (N,)
+    uint8, zero-padded to a multiple of ADLER_CHUNK. Returns a 0-dim
+    int64 tensor. CUDA tensors take the kernel, CPU tensors
+    `adler32_fixed_plain`."""
+    if data.device.type == "cpu":
+        return adler32_fixed_plain(data, length, adler_in)
+    _check_bytes(data, 1, "adler32_fixed")
+    n = int(length)
+    adler_in &= _MASK32
+    if n == 0:
+        return torch.tensor(adler_in, dtype=_I64, device=data.device)
+    if data.shape[0] % ADLER_CHUNK or data.shape[0] < n:
+        raise ValueError(f"data of {data.shape[0]} bytes is not {n} bytes "
+                         f"padded to a multiple of {ADLER_CHUNK}")
+    return _buffer(_ADLER, data, n, adler_in)
+
+
+def adler32_blocks(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Adler-32 of each row's first lengths[b] bytes (rows zero-padded).
+    data (B, S) uint8 with S a multiple of ADLER_CHUNK; lengths (B,) of
+    any integer type. Returns (B,) int64. CUDA tensors take the kernel,
+    CPU tensors `adler32_blocks_plain`."""
+    if data.device.type == "cpu":
+        return adler32_blocks_plain(data, lengths)
+    return _rows(_ADLER, data, lengths, ADLER_CHUNK, "adler32_blocks")
 
 
 # -- one call over a byte string ----------------------------------------------

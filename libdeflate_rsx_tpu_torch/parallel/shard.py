@@ -145,6 +145,8 @@ def encode_rows(split, lo: int, hi: int, tier: str, block_size: int,
             return _encode_blocks(arr[a:b], valid[a:b], finals[a:b],
                                   block_size, device)
         if checksums:
+            # the strided view (rows of block_size + BLOCK_PAD) is not
+            # dense, so the copy to the card is contiguous
             body = torch.from_numpy(arr[a:b, :block_size]).to(device)
             n = torch.from_numpy(valid[a:b]).to(device)
             crcs.append(crc32_blocks(body, n).cpu().numpy())

@@ -1136,3 +1136,59 @@ def v2_collision_traps(s: int, rng, add, background) -> None:
         for j, p in enumerate(range(2000, 40001, 2000)):
             words[p] = (lambda j: lambda h: v2_collider(h, 200 + j))(j)
         add("a colliding run longer than 32768", planted(words))
+
+
+# -- the device checksums' trap rows and buffers ------------------------------
+
+CHECKSUM_THREADS = 256      # threads a row of csrc/checksums.cu
+CHECKSUM_BUFFER_ROW = 65536     # bytes a row of one buffer in that kernel
+#: row widths: 4 bytes a thread, an odd count of 1,024-byte chunks, the
+#: main path's 64 KiB blocks
+CHECKSUM_WIDTHS = (1024, 5120, 65536)
+#: initial values of the buffer traps: 0, 1, and five Adler values whose
+#: halves are at or past the modulus 65,521
+CHECKSUM_INITS = (0, 1, 0xFFFFFFFF, 0xFFF1FFF1, 0xFFF0FFF0, 0x0000FFFF,
+                  0xFFFF0000)
+
+
+def checksum_lengths(s: int) -> list[int]:
+    """Row lengths that reach the kernel's edges at width s: 0, 1, 7, 8,
+    15, 16 (the head and tail bytes around a 16-byte load), every
+    thread's span boundary and one byte either side, s - 1 and s."""
+    span = -(-s // CHECKSUM_THREADS)
+    out = {0, 1, 7, 8, 15, 16, s - 1, s}
+    for k in range(1, CHECKSUM_THREADS):
+        out |= {k * span - 1, k * span, k * span + 1}
+    return sorted(x for x in out if 0 <= x <= s)
+
+
+def checksum_rows(s: int, seed: int = 31):
+    """(rows (B, s) uint8, lengths (B,) int64, numpy): a random row for
+    each of checksum_lengths(s), then all-0x00 rows and all-0xFF rows
+    at lengths s, s - 1, 17 and 1; every row zero past its length."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + s)
+    lens = checksum_lengths(s)
+    fills = [None] * len(lens)
+    for fill in (0x00, 0xFF):
+        lens += [s, s - 1, 17, 1]
+        fills += [fill] * 4
+    rows = np.zeros((len(lens), s), np.uint8)
+    for i, (n, fill) in enumerate(zip(lens, fills)):
+        rows[i, :n] = rng.integers(0, 256, n, dtype=np.uint8) \
+            if fill is None else fill
+    return rows, np.array(lens, np.int64)
+
+
+def checksum_buffers(seed: int = 37) -> list[bytes]:
+    """Buffers for the one-buffer path (rows of 64 KiB, the last one
+    short): 1 MiB + 3 random bytes, 1, 16 and 1,023 bytes, one row
+    exactly and a byte either side, three rows and 1,000 bytes of text,
+    and 70,000 bytes of 0xFF."""
+    r = random.Random(seed)
+    row = CHECKSUM_BUFFER_ROW
+    return [r.randbytes((1 << 20) + 3), r.randbytes(1), r.randbytes(16),
+            r.randbytes(1023), r.randbytes(row - 1), r.randbytes(row),
+            r.randbytes(row + 1), make_corpus("text", 3 * row + 1000, seed),
+            b"\xff" * 70000]

@@ -1,6 +1,6 @@
 """The port on a CUDA card: the pass-1, inflate_v2, inflate_static,
-dyn_tables, assembly, resolve, match_l6, match_v2, select and emit
-kernels against
+dyn_tables, assembly, resolve, match_l6, match_v2, select, emit and
+checksum kernels against
 their plain PyTorch versions on the card, the slice through the
 kernels, the level 0-6 compress tiers (card bytes equal to CPU bytes,
 decoded through the kernels) and the device checksums under TF32 and
@@ -19,10 +19,12 @@ import numpy as np
 import pytest
 import torch
 
-from _port_corpus import (RESOLVE_CASES, V2_SIZES, edge_cases, edge_rows,
-                          emit_cases, emit_pass_inputs, emit_random_cases,
-                          l6_windows, make_corpus, mutated_streams,
-                          select_cases, select_tile_cases, v2_cases)
+from _port_corpus import (CHECKSUM_INITS, CHECKSUM_WIDTHS, RESOLVE_CASES,
+                          V2_SIZES, checksum_buffers, checksum_rows,
+                          edge_cases, edge_rows, emit_cases,
+                          emit_pass_inputs, emit_random_cases, l6_windows,
+                          make_corpus, mutated_streams, select_cases,
+                          select_tile_cases, v2_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -290,6 +292,125 @@ def test_checksums_on_card_exact_under_any_matmul_precision(card):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.set_float32_matmul_precision(precision)
+
+
+@pytest.mark.parametrize("width", CHECKSUM_WIDTHS)
+def test_checksum_kernel_equals_plain_on_trap_rows(card, width):
+    """crc32_blocks and adler32_blocks launch the kernel and equal the
+    plain versions and zlib on the trap rows, with int32 and int64
+    lengths; a row view at a wider stride is read in place, one whose
+    bytes are not adjacent is copied, with the same results."""
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
+
+    rows, lens = checksum_rows(width)
+    want_c = [zlib.crc32(r[:n].tobytes()) for r, n in zip(rows, lens)]
+    want_a = [zlib.adler32(r[:n].tobytes()) for r, n in zip(rows, lens)]
+    t = torch.from_numpy(rows).to(card)
+    wide = torch.zeros((len(rows), width + 48), dtype=torch.uint8,
+                       device=card)
+    wide[:, 7:7 + width] = t
+    views = [t, wide[:, 7:7 + width],
+             t.t().contiguous().t()]   # stride (1, B): copied
+    assert not views[1].is_contiguous() and views[2].stride(1) != 1
+    for n in (torch.from_numpy(lens).to(card),
+              torch.from_numpy(lens.astype(np.int32)).to(card)):
+        plain_c = ck.crc32_blocks_plain(t, n).cpu().tolist()
+        plain_a = ck.adler32_blocks_plain(t, n).cpu().tolist()
+        assert plain_c == want_c and plain_a == want_a
+        for v in views:
+            before = ck.LAUNCHES
+            assert ck.crc32_blocks(v, n).cpu().tolist() == want_c
+            assert ck.adler32_blocks(v, n).cpu().tolist() == want_a
+            assert ck.LAUNCHES == before + 2
+
+
+def test_checksum_kernel_equals_plain_on_buffers(card):
+    """crc32_fixed and adler32_fixed (rows of 64 KiB, the last one short,
+    then the one-block fold) equal the plain versions and zlib at every
+    initial value; crc32_device never builds the plain version's host
+    table."""
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
+
+    ck._crc_byte_table.cache_clear()
+    for data in checksum_buffers():
+        t = ck._padded(data, ck.CRC_CHUNK, card)
+        for init in CHECKSUM_INITS:
+            before = ck.LAUNCHES
+            crc = int(ck.crc32_fixed(t, len(data), init))
+            adler = int(ck.adler32_fixed(t, len(data), init))
+            assert ck.LAUNCHES == before + 2
+            assert crc == zlib.crc32(data, init), (len(data), hex(init))
+            assert adler == zlib.adler32(data, init), (len(data), hex(init))
+            assert ck.crc32_device(data, init, card) == crc
+            assert ck.adler32_device(data, init, card) == adler
+    assert ck._crc_byte_table.cache_info().currsize == 0
+    t = ck._padded(checksum_buffers()[-1], ck.CRC_CHUNK, card)
+    for init in CHECKSUM_INITS:
+        assert int(ck.crc32_fixed(t, 70000, init)) == \
+            int(ck.crc32_fixed_plain(t, 70000, init))
+        assert int(ck.adler32_fixed(t, 70000, init)) == \
+            int(ck.adler32_fixed_plain(t, 70000, init))
+    before = ck.LAUNCHES
+    assert int(ck.crc32_fixed(t, 0, 5)) == 5
+    assert int(ck.adler32_fixed(t, 0, 7)) == 7
+    assert ck.crc32_device(b"", 9, card) == 9
+    assert ck.LAUNCHES == before
+
+
+def test_checksum_kernel_guards(card):
+    """A wrong dtype, shape, width or lengths raises before any launch;
+    an empty batch launches nothing."""
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
+
+    n = torch.tensor([3], device=card)
+    before = ck.LAUNCHES
+    for fn in (ck.crc32_blocks, ck.adler32_blocks):
+        with pytest.raises(ValueError):
+            fn(torch.zeros((1, 1024), dtype=torch.int32, device=card), n)
+        with pytest.raises(ValueError):
+            fn(torch.zeros(1024, dtype=torch.uint8, device=card), n)
+        with pytest.raises(ValueError):
+            fn(torch.zeros((1, 1000), dtype=torch.uint8, device=card), n)
+        with pytest.raises(ValueError):
+            fn(torch.zeros((1, 1024), dtype=torch.uint8, device=card),
+               n.cpu())
+        with pytest.raises(ValueError):
+            fn(torch.zeros((2, 1024), dtype=torch.uint8, device=card), n)
+        assert fn(torch.zeros((0, 1024), dtype=torch.uint8, device=card),
+                  torch.zeros(0, dtype=torch.int32, device=card)).shape == (0,)
+    for fn in (ck.crc32_fixed, ck.adler32_fixed):
+        with pytest.raises(ValueError):
+            fn(torch.zeros(1024, dtype=torch.int8, device=card), 3)
+        with pytest.raises(ValueError):
+            fn(torch.zeros((1, 1024), dtype=torch.uint8, device=card), 3)
+        with pytest.raises(ValueError):
+            fn(torch.zeros(1024, dtype=torch.uint8, device=card), 1025)
+    assert ck.LAUNCHES == before
+
+
+def test_sharded_static_gzip_launches_the_checksum_kernel(card, tmp_path):
+    """ShardedCompressor(tier="static") at NCCL world size 1: zlib and
+    gzip each launch the checksum kernel twice a pass and round-trip;
+    deflate launches nothing. The block rows' strided numpy view arrives
+    on the card contiguous."""
+    import gzip
+
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
+    from libdeflate_rsx_tpu_torch.parallel import (ShardedCompressor,
+                                                   multihost)
+
+    padded = np.zeros((3, 65536 + 264), np.uint8)
+    assert torch.from_numpy(padded[1:3, :65536]).to(card).is_contiguous()
+    multihost.initialize(multihost.file_rendezvous(str(tmp_path)), 1, 0,
+                         backend="nccl")
+    data = make_corpus("text", 300000, seed=3)
+    sc = ShardedCompressor(device=card)
+    before = ck.LAUNCHES
+    sc.compress(data, "deflate")
+    assert ck.LAUNCHES == before
+    assert zlib.decompress(sc.compress(data, "zlib")) == data
+    assert gzip.decompress(sc.compress(data, "gzip")) == data
+    assert ck.LAUNCHES == before + 4
 
 
 def _histograms(n: int, seed: int):

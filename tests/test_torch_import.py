@@ -60,7 +60,7 @@ def test_import_leaves_jax_out():
 PROBES = ["scripts/pass1_probe.py", "scripts/stream_probe.py",
           "scripts/phase_probe_torch.py", "scripts/resolve_probe.py",
           "scripts/match_probe.py", "scripts/select_probe.py",
-          "scripts/match_v2_walks.py"]
+          "scripts/match_v2_walks.py", "scripts/checksum_probe.py"]
 EXAMPLES = sorted(str(p.relative_to(ROOT))
                   for p in (ROOT / "examples").glob("torch_*.py"))
 
