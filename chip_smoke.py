@@ -180,9 +180,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    or the static codes, and bit-packed into rows) against its plain
    version on the card: the L6 pass's 259 blocks, the L4 pass's, one L1
    per-item pass's (static mode), zeros and random blocks at L6 and L1,
-   and the seeded trap and overflowing arrays of tests/_port_corpus.py
-   (emit_cases, emit_random_cases) in both modes: rows (every padding
-   byte), byte_off, row_bit0 and end_bits equal; then timed on the L6
+   and the seeded trap, overflowing and tile-edge arrays of
+   tests/_port_corpus.py (emit_cases, emit_random_cases,
+   emit_chunk_cases) in both modes, as they are and through
+   emit_unaligned (every row off 16 bytes): rows (every padding byte),
+   byte_off, row_bit0 and end_bits equal; the launch shape on the three
+   passes (lanes a tile, blocks, blocks resident an SM, registers,
+   shared memory); then timed on the L6
    pass (the record) beside the plain version on the card, and on the
    L4 and L1 passes; the bound counts what this run's tokens need: every
    lane's sel flag, the lit flag of each lane not sel, the byte of each
@@ -2109,12 +2113,16 @@ def phase_emit_kernel(items, card: str):
     """Phase 28: the emit kernel against its plain version on the card,
     on the L6 pass's 259 blocks, the L4 pass's and one L1 per-item pass's
     (static mode), zeros and random blocks at L6 and L1, and the seeded
-    trap and overflowing arrays of tests/_port_corpus.py in both modes;
-    then its record, timed on the L6 pass, and its times on the L4 and L1
-    passes. Returns the record."""
+    trap, overflowing and tile-edge arrays of tests/_port_corpus.py in
+    both modes, as they are and through emit_unaligned's views (every
+    row off 16 bytes); its launch
+    shape on the three passes; then its record, timed on the L6 pass, and
+    its times on the L4 and L1 passes. Returns the record."""
     import numpy as np
     import torch
-    from _port_corpus import emit_cases, emit_pass_inputs, emit_random_cases
+    from _port_corpus import (emit_cases, emit_chunk_cases,
+                              emit_pass_inputs, emit_random_cases,
+                              emit_unaligned)
     from libdeflate_rsx_tpu_torch.ops import emit as em
 
     main = emit_pass_inputs(items, 6, SLICE, "cuda")
@@ -2123,6 +2131,13 @@ def phase_emit_kernel(items, card: str):
     errs.append(emit_vs_plain(*l4, "the L4 pass"))
     l1 = emit_pass_inputs(items[:1], 1, SLICE, "cuda")
     errs.append(emit_vs_plain(*l1, "an L1 pass"))
+    for label, (lanes, tables) in (("the L6 pass", main), ("the L4 pass", l4),
+                                   ("an L1 pass", l1)):
+        shape = em.launch_shape(lanes[1].shape[0], lanes[5], bool(tables))
+        log(f"emit launch on {label}: tiles of {shape['tile']} lanes, "
+            f"{shape['blocks']} blocks of 256 threads, {shape['resident']} "
+            f"resident an SM, {shape['registers']} registers a thread, "
+            f"{shape['shared']} B of dynamic shared memory a block")
     rng = np.random.default_rng(28)
     edge = [bytes(2 * SLICE), rng.integers(0, 256, 2 * SLICE - 999,
                                            dtype=np.uint8).tobytes()]
@@ -2131,20 +2146,24 @@ def phase_emit_kernel(items, card: str):
             *emit_pass_inputs(edge, level, SLICE, "cuda"),
             f"zeros and random blocks at L{level}"))
     labels = []
-    for make in (emit_cases, emit_random_cases):
+    for make in (emit_cases, emit_random_cases, emit_chunk_cases):
         case = make()
         labels += case[0]
         lanes = (*(torch.from_numpy(x).cuda() for x in case[1:6]),
                  case[2].shape[1])
         tables = tuple(torch.from_numpy(x).cuda() for x in case[6:])
-        errs.append(emit_vs_plain(lanes, tables, "the edge arrays"))
-        errs.append(emit_vs_plain(lanes, (), "the edge arrays, static"))
+        odd = (*emit_unaligned(*lanes[:5]), lanes[5])
+        for form, ls in (("", lanes), (", rows off 16 bytes", odd)):
+            errs.append(emit_vs_plain(ls, tables, f"the edge arrays{form}"))
+            errs.append(emit_vs_plain(ls, (),
+                                      f"the edge arrays, static{form}"))
     b = main[0][1].shape[0]
     log(f"emit vs plain: equal on the L6 pass's {b} blocks, the L4 pass's "
         f"{l4[0][1].shape[0]} and an L1 pass's {l1[0][1].shape[0]}, 2 "
-        f"zeros and 2 random blocks at L6 and L1, and {len(labels)} edge "
-        f"and overflowing arrays in both modes ({', '.join(labels)}), max "
-        f"abs err {max(errs)}")
+        f"zeros and 2 random blocks at L6 and L1, and {len(labels)} edge, "
+        f"overflowing and tile-edge arrays in both modes, as they are and "
+        f"with every row off 16 bytes ({', '.join(labels)}), max abs err "
+        f"{max(errs)}")
     for label, (lanes, tables) in (
             (f"an L1 pass's {l1[0][1].shape[0]} blocks", l1),
             (f"the L4 pass's {l4[0][1].shape[0]} blocks", l4)):

@@ -7,9 +7,10 @@ launches the CUDA kernel `csrc/emit.cu` for CUDA tensors and runs the
 plain version, `emit_plain`, for CPU tensors: `encode_dynamic.
 emit_pack_plain` with tables, `encode_v2.emit_static_plain` without.
 Both give the same four outputs, every padding byte of the rows
-included; the kernel's source notes its design (a thread block per tile
-of 64 rows, 8 lanes a thread, the tile's base by a decoupled look-back,
-in one launch).
+included; the kernel's source notes its design (a persistent grid of
+blocks taking tiles of 64 rows in ticket order, the tiles' rows staged
+by bulk copies, a tile's base by a look-back a step later, in one
+launch).
 
 The two callers: `encode_dynamic.emit_pack` (the dynamic mode:
 per-block tables, the header's bits first, rows of ROW_OUT_DYN bytes)
@@ -31,18 +32,29 @@ __all__ = ["emit", "emit_plain"]
 
 #: kernel launches made by `emit` (the plain version does not count)
 LAUNCHES = 0
+#: the kernel's state per (device, stream): zeroed once, left zeroed by
+#: every launch
+_STATE: dict[tuple[int, int], torch.Tensor] = {}
+_LIB = None
 
 
 def _lib():
-    lib = _build.load("emit")
-    if lib.ldrsx_emit.argtypes is None:
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("emit")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ldrsx_emit.argtypes = [p, ll, p, ll, p, ll, p, ll, p, ll, p, p,
-                                   p, i, i, p, p, p, p, p, p]
-        lib.ldrsx_emit.restype = ctypes.c_int
+        args = [p, ll, p, ll, p, ll, p, ll, p, ll, p, p, p, i, i, p, p, p, p,
+                p]
+        lib.ldrsx_emit.argtypes = [*args, p]
+        lib.ldrsx_emit.restype = i
+        lib.ldrsx_emit_shaped.argtypes = [*args, i, p, p]
+        lib.ldrsx_emit_shaped.restype = i
         lib.ldrsx_emit_scratch.argtypes = [i, i]
-        lib.ldrsx_emit_scratch.restype = ctypes.c_longlong
-    return lib
+        lib.ldrsx_emit_scratch.restype = ll
+        lib.ldrsx_emit_shape.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.ldrsx_emit_shape.restype = i
+        _LIB = lib
+    return _LIB
 
 
 def emit_plain(data: torch.Tensor, ml: torch.Tensor, dist: torch.Tensor,
@@ -58,14 +70,74 @@ def emit_plain(data: torch.Tensor, ml: torch.Tensor, dist: torch.Tensor,
                            start_bits, block_size)
 
 
-def _lanes(x: torch.Tensor, align: int = 1) -> torch.Tensor:
-    """x itself when its lanes are contiguous and its rows start on
-    `align` bytes (the kernel takes the row stride, so a column slice
-    needs no copy), else a contiguous copy."""
-    if x.stride(1) == 1 and x.data_ptr() % align == 0 \
-            and x.stride(0) * x.element_size() % align == 0:
+def launch_shape(b: int, block_size: int, dynamic: bool = True,
+                 device=None) -> dict:
+    """The kernel's launch on b blocks of block_size lanes on the card:
+    lanes a tile, blocks launched, blocks resident an SM, registers a
+    thread and dynamic shared memory of a block in bytes. Raises if the
+    kernel does not take it."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        rc = _lib().ldrsx_emit_shape(b, block_size // ROW, int(dynamic), out)
+    if rc != 0:
+        raise RuntimeError(f"emit kernel: no launch shape for {b} blocks of "
+                           f"{block_size} lanes (CUDA error {rc})")
+    return dict(zip(("tile", "blocks", "resident", "registers", "shared"),
+                    out))
+
+
+def _lanes(x: torch.Tensor) -> torch.Tensor:
+    """x itself when its lanes are contiguous (the kernel takes any row
+    stride and alignment, so a column slice needs no copy), else a
+    contiguous copy."""
+    if x.stride(1) == 1:
         return x
     return x.clone(memory_format=torch.contiguous_format)
+
+
+def _round_ok(x: torch.Tensor, s: int) -> bool:
+    """Whether the kernel may read x's rows of s bytes rounded out to 16
+    bytes: they start on 16 bytes (nothing to round), or the first row's
+    start rounded down and the last row's end rounded up stay inside x's
+    storage."""
+    first, stride = x.data_ptr(), x.stride(0)
+    if first % 16 == 0 and stride % 16 == 0:
+        return True
+    storage = x.untyped_storage()
+    end = first + (x.shape[0] - 1) * stride + s
+    return first - first % 16 >= storage.data_ptr() and \
+        -(-end // 16) * 16 <= storage.data_ptr() + storage.nbytes()
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(index: int) -> int:
+    """The current stream of device `index`, as a pointer."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _state(dev: torch.device, stream: int, nbytes: int) -> torch.Tensor:
+    """The zeroed state of the kernel's launches on this stream, at least
+    nbytes; a larger one replaces it when needed."""
+    key = (dev.index, stream)
+    st = _STATE.get(key)
+    if st is None or st.numel() < nbytes:
+        size = max(nbytes, 0 if st is None else 2 * st.numel())
+        st = _STATE[key] = torch.zeros(size, dtype=torch.uint8, device=dev)
+    return st
+
+
+def _launch(dev, b: int, r: int, args, rnd: int) -> int:
+    """The C call on the current device's current stream, with that
+    stream's state; returns its CUDA error code."""
+    stream = _stream(dev.index)
+    # ldrsx_emit_scratch's bytes: two counters, a word a tile of 64 rows
+    state = _state(dev, stream, 8 + 8 * b * -(-r // 64))
+    return _lib().ldrsx_emit_shaped(*args, state.data_ptr(), rnd, None,
+                                    stream)
 
 
 def emit(data: torch.Tensor, ml: torch.Tensor, dist: torch.Tensor,
@@ -91,9 +163,9 @@ def emit(data: torch.Tensor, ml: torch.Tensor, dist: torch.Tensor,
     dyn = ll_tab is not None
     s = block_size
     b = ml.shape[0] if ml.dim() == 2 else -1
-    lanes = (ml, dist, sel, lit)
     if ml.dim() != 2 or s <= 0 or s % ROW \
-            or any(x.shape != (b, s) for x in lanes) \
+            or ml.shape != (b, s) or dist.shape != (b, s) \
+            or sel.shape != (b, s) or lit.shape != (b, s) \
             or ml.dtype != torch.int64 or dist.dtype != torch.int64 \
             or sel.dtype != torch.bool or lit.dtype != torch.bool \
             or data.dim() != 2 or data.dtype != torch.uint8 \
@@ -121,29 +193,32 @@ def emit(data: torch.Tensor, ml: torch.Tensor, dist: torch.Tensor,
     out = (rows, byte_off, row_bit0, end_bits)
     if b == 0:
         return out
-    # the kernel loads the flags 8 lanes and (ml, dist) 2 lanes at a time
-    data, ml, dist, sel, lit = (_lanes(x, a) for x, a in (
-        (data, 1), (ml, 16), (dist, 16), (sel, 8), (lit, 8)))
+    if data.stride(1) != 1 or ml.stride(1) != 1 or dist.stride(1) != 1 \
+            or sel.stride(1) != 1 or lit.stride(1) != 1:
+        data, ml, dist, sel, lit = map(_lanes, (data, ml, dist, sel, lit))
+    start = None
     if dyn:
-        ll_tab, of_tab = (t.to(device=dev, dtype=torch.int32).contiguous()
+        ll_tab, of_tab = (t if t.dtype == torch.int32 and t.is_contiguous()
+                          and t.device == dev else
+                          t.to(device=dev, dtype=torch.int32).contiguous()
                           for t in (ll_tab, of_tab))
-        start = start_bits.to(device=dev, dtype=torch.int64).contiguous()
-    else:
-        start = torch.full((b,), 3, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        lib = _lib()
-        # the kernel's state (cleared by the C call before its launch)
-        state = torch.empty(lib.ldrsx_emit_scratch(b, r), dtype=torch.uint8,
-                            device=dev)
-        rc = lib.ldrsx_emit(
-            data.data_ptr(), data.stride(0), ml.data_ptr(), ml.stride(0),
+        start = start_bits if start_bits.dtype == torch.int64 \
+            and start_bits.is_contiguous() and start_bits.device == dev \
+            else start_bits.to(device=dev, dtype=torch.int64).contiguous()
+    args = (data.data_ptr(), data.stride(0), ml.data_ptr(), ml.stride(0),
             dist.data_ptr(), dist.stride(0), sel.data_ptr(), sel.stride(0),
             lit.data_ptr(), lit.stride(0),
             ll_tab.data_ptr() if dyn else None,
-            of_tab.data_ptr() if dyn else None, start.data_ptr(), b, r,
+            of_tab.data_ptr() if dyn else None,
+            start.data_ptr() if dyn else None, b, r,
             rows.data_ptr(), byte_off.data_ptr(), row_bit0.data_ptr(),
-            end_bits.data_ptr(), state.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            end_bits.data_ptr())
+    rnd = _round_ok(sel, s) | _round_ok(lit, s) << 1 | _round_ok(data, s) << 2
+    if dev.index == torch.cuda.current_device():
+        rc = _launch(dev, b, r, args, rnd)
+    else:
+        with torch.cuda.device(dev):
+            rc = _launch(dev, b, r, args, rnd)
     if rc != 0:
         raise RuntimeError(f"emit kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

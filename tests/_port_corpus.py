@@ -811,6 +811,13 @@ def select_tile_cases(start: int = L6_HIST, seed: int = 17,
 EMIT_TILE = 2048        # lanes a tile of csrc/emit.cu takes (64 rows)
 EMIT_WARP = 256         # lanes a warp of it takes (8 a thread)
 EMIT_S = 3 * EMIT_TILE + 96     # three whole tiles and a part
+#: nine whole tiles and a part: eight tile edges and a short last tile
+EMIT_CHUNK_S = 9 * EMIT_TILE + 96
+#: (first column, columns after the lanes) of each lane array's rows in
+#: `emit_unaligned`, in the order data, ml, dist, sel, lit: no row of
+#: the flags or bytes starts on 16 bytes except by chance, (ml, dist)
+#: rows alternate between 8 and 16
+EMIT_UNALIGNED = ((3, 7), (1, 2), (3, 0), (5, 6), (11, 2))
 
 
 def _emit_tables(rng, b, max_len=15):
@@ -824,6 +831,35 @@ def _emit_tables(rng, b, max_len=15):
         code = rng.integers(0, 1 << 16, (b, n)) & ((1 << ln) - 1)
         out.append((code | (ln << 16)).astype(np.int32))
     return out
+
+
+def _greedy_tokens(rng, s, starts, valid, ml_at, dist_at):
+    """Greedy tokens of a block of s lanes as the select kernel gives
+    them: a match at each of `starts` (its length from ml_at, else
+    4..40; its distance from dist_at, else random), literals between
+    them, nothing past valid: (ml, dist, sel, lit)."""
+    import numpy as np
+
+    ml = np.zeros(s, np.int64)
+    dist = rng.integers(1, 32769, s).astype(np.int64)
+    sel = np.zeros(s, bool)
+    lit = np.zeros(s, bool)
+    p = 0
+    starts = sorted(set(starts))
+    for at in starts + [valid]:
+        if at < p:                  # inside the match before it
+            continue
+        lit[p:min(at, valid)] = True
+        if at >= valid:
+            break
+        ln = int(rng.integers(4, 41)) if ml_at is None else ml_at(at)
+        ml[at] = ln
+        if dist_at is not None:
+            dist[at] = dist_at(at)
+        sel[at] = True
+        p = at + ln
+    ml[~sel] = rng.integers(0, 9, int((~sel).sum()))
+    return ml, dist, sel, lit
 
 
 def emit_cases(seed: int = 19):
@@ -841,28 +877,8 @@ def emit_cases(seed: int = 19):
     out = []
 
     def add(label, starts, valid=s, ml_at=None, dist_at=None):
-        # greedy tokens: a match at each of `starts` (its length from
-        # ml_at, else 4..40), literals between them, nothing past valid
-        ml = np.zeros(s, np.int64)
-        dist = rng.integers(1, 32769, s).astype(np.int64)
-        sel = np.zeros(s, bool)
-        lit = np.zeros(s, bool)
-        p = 0
-        starts = sorted(set(starts))
-        for at in starts + [valid]:
-            if at < p:                  # inside the match before it
-                continue
-            lit[p:min(at, valid)] = True
-            if at >= valid:
-                break
-            ln = int(rng.integers(4, 41)) if ml_at is None else ml_at(at)
-            ml[at] = ln
-            if dist_at is not None:
-                dist[at] = dist_at(at)
-            sel[at] = True
-            p = at + ln
-        ml[~sel] = rng.integers(0, 9, int((~sel).sum()))
-        out.append((label, ml, dist, sel, lit))
+        out.append((label, *_greedy_tokens(rng, s, starts, valid, ml_at,
+                                           dist_at)))
 
     add("a match on each row's last lane", range(31, s, 64),
         ml_at=lambda at: 4)
@@ -916,6 +932,66 @@ def emit_random_cases(seed: int = 23, s: int = EMIT_S):
     data = rng.integers(0, 256, (b, s + L6_ROW_PAD), dtype=np.uint8)
     return ([f"random overflowing rows {i}" for i in range(b)], data, ml,
             dist, sel, lit, *tabs, np.array([0, 3, 31, 77], np.int64))
+
+
+def emit_chunk_cases(seed: int = 31):
+    """Seeded emit inputs whose tokens straddle the emit kernel's tile
+    edges (every 2,048 lanes) in blocks of EMIT_CHUNK_S lanes, as the
+    select kernel gives them: the same tuple as emit_cases. A match's
+    offset rides from a tile's last lane into the next tile's first;
+    matches cover each edge; a match starts on each tile's first lane;
+    the longest codes at the edges; a block that ends inside a short last
+    tile; blocks start at bits 0, 5, 31, 4,099 and past 2^20."""
+    import numpy as np
+
+    s = EMIT_CHUNK_S
+    rng = np.random.default_rng(seed)
+    edges = range(EMIT_TILE, s, EMIT_TILE)
+    out = [("a match on each tile's last lane, riding into the next tile",
+            *_greedy_tokens(rng, s, [e - 1 for e in edges], s,
+                            lambda at: 4, None)),
+           ("matches of 5 over each tile edge, from 1 to 4 lanes before it",
+            *_greedy_tokens(rng, s, [e - 1 - (e // EMIT_TILE) % 4
+                                     for e in edges], s, lambda at: 5,
+                            None)),
+           ("a match on each tile's first lane and each warp's last",
+            *_greedy_tokens(rng, s, [*edges, *range(EMIT_WARP - 1, s,
+                                                     EMIT_WARP * 3)], s,
+                            lambda at: 4, None)),
+           ("matches of 258 at distance 32,768 across the edges, long codes",
+            *_greedy_tokens(rng, s, [e - 129 for e in edges], s,
+                            lambda at: 258, lambda at: 32768)),
+           ("random matches, valid_len in the last tile",
+            *_greedy_tokens(rng, s, rng.choice(s - 300, 900, False),
+                            s - 57, None, None))]
+    b = len(out)
+    ll_tab, of_tab = _emit_tables(rng, b)
+    long_ll, long_of = _emit_tables(rng, 1, max_len=15)
+    ll_tab[3] = (long_ll[0] & 0xFFFF) | (15 << 16)
+    of_tab[3] = (long_of[0] & 0xFFFF) | (15 << 16)
+    data = rng.integers(0, 256, (b, s + L6_ROW_PAD), dtype=np.uint8)
+    start = np.array([0, 5, 31, 4099, (1 << 20) + 3], np.int64)
+    return ([o[0] for o in out], data,
+            *(np.stack([o[k] for o in out]) for k in range(1, 5)),
+            ll_tab, of_tab, start)
+
+
+def emit_unaligned(data, ml, dist, sel, lit):
+    """The same lanes as column views of wider rows (EMIT_UNALIGNED), as
+    the L1-5 and L6 flows hand over their bytes and distances, but with
+    every array's rows off the 16 bytes of the emit kernel's bulk copies:
+    tensors of any device, in and out."""
+    import torch
+
+    out = []
+    for x, (first, after) in zip((data, ml, dist, sel, lit),
+                                 EMIT_UNALIGNED, strict=True):
+        n = x.shape[1]
+        wide = torch.zeros((x.shape[0], first + n + after), dtype=x.dtype,
+                           device=x.device)
+        wide[:, first:first + n] = x
+        out.append(wide[:, first:first + n])
+    return tuple(out)
 
 
 def emit_pass_inputs(datas, level: int, block: int, device):

@@ -22,7 +22,8 @@ import torch
 from _port_corpus import (CHECKSUM_INITS, CHECKSUM_WIDTHS, RESOLVE_CASES,
                           V2_SIZES, checksum_buffers, checksum_rows,
                           edge_cases, edge_rows, emit_cases,
-                          emit_pass_inputs, emit_random_cases, l6_windows,
+                          emit_chunk_cases, emit_pass_inputs,
+                          emit_random_cases, emit_unaligned, l6_windows,
                           make_corpus, mutated_streams, select_cases,
                           select_tile_cases, v2_cases)
 
@@ -1083,8 +1084,8 @@ def test_emit_kernel_equals_plain_on_edge_and_overflowing_rows(card, make):
     and distances, inactive lanes, no tokens, blocks starting at bits
     0..65,538) and random rows that overflow their frames, in both
     modes; and again through column slices of wider rows, as the L6 flow
-    hands its bytes and distances over (rows the kernel loads as they
-    are, and rows off its load widths, which the wrapper copies)."""
+    hands its bytes and distances over (the kernel reads every row
+    stride and alignment in place)."""
     lanes, tables = _emit_arrays(make(), card)
     _emit_equal(*lanes, *tables)
     _emit_equal(*lanes)
@@ -1095,6 +1096,43 @@ def test_emit_kernel_equals_plain_on_edge_and_overflowing_rows(card, make):
         assert wide[2].stride(0) == s + pad
         _emit_equal(*wide, s, *tables)
         _emit_equal(*wide, s)
+
+
+@pytest.mark.parametrize("unaligned", [False, True])
+@pytest.mark.parametrize("make", [emit_cases, emit_random_cases,
+                                  emit_chunk_cases])
+def test_emit_kernel_tile_edges_and_unaligned_rows(card, make, unaligned):
+    """The trap, overflowing and tile-edge arrays, as they are and
+    through emit_unaligned (every array's rows off 16 bytes), in both
+    modes."""
+    lanes, tables = _emit_arrays(make(), card)
+    if unaligned:
+        lanes = (*emit_unaligned(*lanes[:5]), lanes[5])
+    _emit_equal(*lanes, *tables)
+    _emit_equal(*lanes)
+
+
+def test_emit_kernel_state_and_launch_shape(card):
+    """The kernel's state is left zeroed: calls on the current stream and
+    on a side stream, one after another and in turns, give equal outputs;
+    the launch takes tiles of 2,048 lanes with no more blocks than are
+    resident at once or than half the tiles."""
+    from libdeflate_rsx_tpu_torch.ops import emit as em
+
+    lanes, tables = _emit_arrays(emit_chunk_cases(), card)
+    want = _emit_equal(*lanes, *tables)
+    side = torch.cuda.Stream()
+    for stream in (side, torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            got = em.emit(*lanes, *tables)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    shape = em.launch_shape(lanes[1].shape[0], lanes[5])
+    assert shape["tile"] == 2048
+    assert shape["blocks"] == -(-lanes[1].shape[0] * -(-lanes[5] // 2048)
+                                // 2)
+    assert 0 < shape["blocks"] <= shape["resident"] * \
+        torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def test_emit_kernel_equals_plain_on_trap_windows(card):
