@@ -15,9 +15,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    every test-corpus kind and level, multi-block, garbage, truncated and
    bit-flipped streams, 16 KiB slices of the Silesia-like corpus, and
    streams with sync points (Z_SYNC_FLUSH and Z_FULL_FLUSH every few KiB,
-   stored data holding 00 00 FF FF, truncated and bit-flipped ones);
-   tokens and stats equal; then again on the main path's 256 zlib-6
-   slices, which give the kernel's timed record and its bound;
+   stored data holding 00 00 FF FF, truncated and bit-flipped ones),
+   and streams whose final stored block is cut by one byte (every one
+   BAD); tokens and stats equal; the cut streams through
+   BatchDecompressor(use_device=True) in both resolve modes: each None,
+   counted as a pass-1 fallback; then again on the main path's 256
+   zlib-6 slices, which give the kernel's timed record and its bound;
 4. compress: BatchCompressor(level=6, use_device=True) over the corpus
    in 1 MiB items, every output checked with zlib; the match kernel, the
    table kernel and the assembly kernel must each have launched once a
@@ -211,13 +214,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    the trap rows of tests/_port_corpus.py (checksum_rows at widths
    1,024, 5,120 and 65,536: every span boundary +-1, the head and tail
    lengths, all-0x00 and all-0xFF rows; int32 and int64 lengths) and
-   its trap buffers (checksum_buffers, 1 MiB + 3 bytes among them) at
-   its trap initial values, the whole corpus with and without an
-   initial value: every register equal, and equal to zlib; then
-   crc32_blocks and adler32_blocks timed on the corpus's rows beside
-   their plain versions on the card (the record: the pair summed; the
-   bound the bytes each call must move: the corpus bytes, the int32
-   lengths and the int64 registers).
+   its rows wider than a CRC tile (checksum_wide_rows: the register
+   carried from tile to tile) and its trap buffers (checksum_buffers,
+   1 MiB + 3 bytes among them) at its trap initial values, the whole
+   corpus with and without an initial value: every register equal, and
+   equal to zlib, the CRC buffer route's state left zeroed; the corpus
+   as one buffer timed, its CRC one kernel launch (torch.profiler);
+   then crc32_blocks and adler32_blocks timed on the corpus's rows
+   beside their plain versions on the card (the record: the pair
+   summed; the bound the bytes each call must move: the corpus bytes,
+   the int32 lengths and the int64 registers).
 
 Phases 13-21 drive the level 0-5 tiers, the checksums, the memory
 budget and the sharded paths; the kernels' launches there are logged
@@ -247,8 +253,8 @@ import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
-from _port_corpus import (edge_cases, edge_rows, make_corpus,  # noqa: E402
-                          mutated_streams, raw_z)
+from _port_corpus import (cut_stored_streams, edge_cases,  # noqa: E402
+                          edge_rows, make_corpus, mutated_streams, raw_z)
 
 ITEM = 1 << 20          # compress item size (bytes)
 SLICE = 65536           # decode-set slice size (bytes)
@@ -327,8 +333,9 @@ def phase_build():
 
 def small_cases():
     """(stream, original, or None for malformed, or MUTATED) of every
-    test-corpus kind and level, multi-block, garbage, truncated and
-    bit-flipped streams."""
+    test-corpus kind and level, multi-block, garbage, truncated (the
+    final stored block cut by one byte among them) and bit-flipped
+    streams."""
     cases = []
     for lvl in (0, 1, 6, 9):
         for kind in ("text", "random", "pattern", "zeros", "periodic:7"):
@@ -343,6 +350,7 @@ def small_cases():
     good = make_corpus("text", 3000, seed=1)
     cases += [(bytes(r.randrange(256) for _ in range(600)), None),
               (raw_z(good)[:250], None), (b"\x07\x00", None)]
+    cases += [(z, None) for z, _ in cut_stored_streams()]
     return cases + [(m, MUTATED) for m in mutated_streams(N_MUTATED)]
 
 
@@ -458,6 +466,7 @@ def phase_kernel(data: bytes):
     """Kernel against plain version on the card at the 64 KiB out_cap of
     the slice decode set, then on the main path's N_SLICES zlib-6 slices;
     returns the kernel's JSON record, from the latter."""
+    from libdeflate_rsx_tpu_torch import BatchDecompressor
     from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
 
     sync = sync_cases(data)
@@ -479,6 +488,17 @@ def phase_kernel(data: bytes):
     log(f"  pass-1 kernel {ms:.3f} ms per launch (CUDA events, "
         f"{KERNEL_REPS} launches); plain version {plain_ms:.1f} ms "
         f"(host clock, one run), on that same reduced set")
+    cut = cut_stored_streams()
+    for resolve in ("device", "host"):
+        bd = BatchDecompressor(use_device=True, resolve=resolve)
+        got = bd.decompress_batch([z for z, _ in cut],
+                                  [len(d) for _, d in cut])
+        assert got == [None] * len(cut), \
+            f"a cut stored stream decoded (resolve={resolve})"
+        assert dict(bd.fallbacks) == {"pass1": len(cut)}, bd.fallbacks
+    log(f"  {len(cut)} streams whose final stored block is cut by one byte:"
+        f" BAD in the kernel as in the plain version; None through "
+        f"BatchDecompressor in both resolve modes, each a pass-1 fallback")
     chunks = [data[i * SLICE:(i + 1) * SLICE] for i in range(N_SLICES)]
     path = [(raw_z(c), c) for c in chunks]
     err2, ms, plain_ms, stats = kernel_vs_plain(path, SLICE, "256 slices")
@@ -2324,18 +2344,22 @@ def phase_checksum_kernel(data: bytes, card: str):
     64 KiB rows with their int32 lengths (the sharded static tier's
     call) and on the trap rows of tests/_port_corpus.py (every span
     boundary +-1, the head and tail lengths, all-0x00 and all-0xFF rows;
-    int32 and int64 lengths); crc32_fixed and adler32_fixed on the trap
-    buffers at every trap initial value and on the whole corpus, with
-    and without an initial value (crc32_device and adler32_device equal
-    to zlib); then each of crc32_blocks and adler32_blocks timed on the
-    corpus's rows beside its plain version. The record is the pair as
+    int32 and int64 lengths) and its rows wider than a CRC tile;
+    crc32_fixed and adler32_fixed on the trap buffers at every trap
+    initial value and on the whole corpus, with and without an initial
+    value (crc32_device and adler32_device equal to zlib), the CRC
+    state left zeroed; the corpus as one buffer timed, its CRC in one
+    kernel launch; then each of crc32_blocks and adler32_blocks timed
+    on the corpus's rows beside its plain version. The record is the
+    pair as
     the sharded path calls it: ms and plain_ms summed, the bound the
     bytes each of the two calls must move (the corpus bytes, the int32
     lengths, the int64 registers)."""
     import numpy as np
     import torch
     from _port_corpus import (CHECKSUM_INITS, CHECKSUM_WIDTHS,
-                              checksum_buffers, checksum_rows)
+                              checksum_buffers, checksum_rows,
+                              checksum_wide_rows)
     from libdeflate_rsx_tpu_torch.ops import checksums as ck
 
     pairs = (("crc32_blocks", ck.crc32_blocks, ck.crc32_blocks_plain,
@@ -2370,6 +2394,15 @@ def phase_checksum_kernel(data: bytes, card: str):
                 [ref(r[:k].tobytes()) for r, k in zip(trap, lens)], \
                 f"{name} on the trap rows at {width} != zlib"
         ntrap += len(trap)
+    wide, lens = checksum_wide_rows()
+    t, n = torch.from_numpy(wide).cuda(), torch.from_numpy(lens).cuda()
+    for name, kernel, plain, ref in pairs:
+        err = max(err, checksum_vs_plain(kernel, plain, (t, n),
+                                         f"{len(wide)} rows wider than a "
+                                         f"CRC tile"))
+        assert kernel(t, n).cpu().tolist() == \
+            [ref(r[:k].tobytes()) for r, k in zip(wide, lens)], \
+            f"{name} on the wide rows != zlib"
     fixed = (("crc32_fixed", ck.crc32_fixed, ck.crc32_fixed_plain,
               zlib.crc32),
              ("adler32_fixed", ck.adler32_fixed, ck.adler32_fixed_plain,
@@ -2391,9 +2424,25 @@ def phase_checksum_kernel(data: bytes, card: str):
     assert ck.adler32_device(b, zlib.adler32(a)) == zlib.adler32(data)
     log(f"checksums kernel on the corpus's {nblk} rows, {ntrap} trap rows "
         f"at widths {CHECKSUM_WIDTHS} (int32 and int64 lengths), "
+        f"{len(wide)} rows of {wide.shape[1]} bytes, "
         f"{len(bufs)} buffers (the corpus among them) at their initial "
         f"values: equal to the plain versions and to zlib (max abs err "
-        f"{err})")
+        f"{err}); the CRC state left zeroed")
+    assert not any(st.any() for st in ck._STATE.values())
+    buf = ck._padded(data, ck.CRC_CHUNK, "cuda")
+    for name, fn in (("crc32_fixed", ck.crc32_fixed),
+                     ("adler32_fixed", ck.adler32_fixed)):
+        dev = kernel_times(lambda: fn(buf, len(data), 1), KERNEL_REPS)
+        k_ms = time_cuda(lambda: fn(buf, len(data), 1), KERNEL_REPS)
+        log(f"{name} of the corpus as one buffer: {k_ms:.4f} ms (CUDA "
+            f"events, {KERNEL_REPS} calls); device µs a call "
+            f"(torch.profiler): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in sorted(dev.items()))
+            + f" [{card}]")
+        if name == "crc32_fixed":
+            assert len(dev) == 1 and "crc_kernel" in next(iter(dev)), \
+                f"the CRC buffer route launched {sorted(dev)}"
+    del buf
     nbytes = len(data) + 4 * nblk + 8 * nblk
     ms = plain_ms = 0.0
     for name, kernel, plain, _ in pairs:

@@ -591,11 +591,11 @@ __device__ Result run(Tables& t, const uint32_t* words,
       // every remaining step of the stored block at once, in the closed
       // form of pass1_plain: a step k (from 0) emits byte k unless the
       // output is full (BAD without it), and the stream overruns at the
-      // step whose byte lies past its end, unless that step ends the
-      // final block
+      // step whose byte lies past its end, the step that ends the final
+      // block too (where the JAX kernel accepts the stream: see
+      // ops/inflate_tokens.py)
       const int64_t q = static_cast<int64_t>(lim) - r.abit;
-      int64_t i_over = q >= 0 ? q >> 3 : 0;
-      if (i_over == srem - 1 && final_blk) i_over = srem;
+      const int64_t i_over = q >= 0 ? q >> 3 : 0;
       const int i_cap = out_cap - outpos;
       const bool by_cap = i_cap < srem && i_cap <= i_over;
       const bool by_over = !by_cap && i_over < srem;

@@ -6,12 +6,16 @@ its matrix unit. Here every step is integer, so the result is exact
 whatever the process's matmul precision (TF32, bf16).
 
 `crc32_fixed`, `crc32_blocks`, `adler32_fixed` and `adler32_blocks` take
-the CUDA kernel (`csrc/checksums.cu`: a thread block a row, each thread
-over a contiguous span by slice-by-8 or the running Adler sums, the
-spans folded in order; one buffer as rows of 64 KiB folded by a second,
-one-block launch) for CUDA tensors and their plain versions, the
-`*_plain` functions below, for CPU tensors. The plain versions, in
-plain PyTorch:
+the CUDA kernels (`csrc/checksums.cu`) for CUDA tensors and their plain
+versions, the `*_plain` functions below, for CPU tensors. The CRC-32
+kernel runs one 1,024-thread block an SM, each thread over a 64-byte
+span by slice-by-4 from tables a copy a lane, the spans folded by one
+multiplication each with an operator from a table; one buffer as rows
+of 64 KiB in the same launch, the block that finishes last ending it
+(its three state words, zeroed once a stream and left zeroed by every
+launch). The Adler-32 kernel runs a thread block a row with the running
+sums a span, folded in order; one buffer as rows of 64 KiB folded by a
+second, one-block launch. The plain versions, in plain PyTorch:
 
 - **CRC-32.** The register is GF(2)-linear in the message, so the
   zero-init register of a CRC_CHUNK-byte chunk is the XOR over its bytes
@@ -53,6 +57,9 @@ _I64 = torch.int64
 #: C calls made by the dispatchers on CUDA tensors (the plain versions do
 #: not count)
 LAUNCHES = 0
+#: the CRC buffer route's state per (device, stream): three uint32 words,
+#: zeroed once, left zeroed by every launch
+_STATE: dict[tuple[int, int], torch.Tensor] = {}
 
 
 # -- host-built constants -----------------------------------------------------
@@ -289,25 +296,40 @@ def _check_bytes(data: torch.Tensor, ndim: int, name: str) -> None:
                          f"not {data.dim()}-D {data.dtype}")
 
 
-def _launch(name: str, *args, device) -> None:
+def _launch(name: str, *args, device, stream) -> None:
     global LAUNCHES
     with torch.cuda.device(device):
-        rc = _kernel(name)(*args, torch.cuda.current_stream(device)
-                           .cuda_stream)
+        rc = _kernel(name)(*args, stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"checksums kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
 
 
+def _state(stream) -> torch.Tensor:
+    """The zeroed state of the CRC buffer route's launches on stream."""
+    key = (stream.device.index, stream.cuda_stream)
+    st = _STATE.get(key)
+    if st is None:
+        st = _STATE[key] = torch.zeros(4, dtype=torch.int32,
+                                       device=stream.device)
+    return st
+
+
 def _buffer(kind: int, data: torch.Tensor, n: int, init: int):
     """The kernel over data[:n] (1-D uint8 on the card, n > 0) as rows
-    of _BUFFER_ROW bytes, folded from `init`: a 0-dim int64 tensor."""
+    of _BUFFER_ROW bytes, continuing from `init`: a 0-dim int64 tensor.
+    The CRC takes its stream's state, Adler a row sum a row."""
     data = data.contiguous()
-    regs = torch.empty(-(-n // _BUFFER_ROW), dtype=_I64, device=data.device)
+    stream = torch.cuda.current_stream(data.device)
+    if kind == _CRC:
+        scratch = _state(stream)
+    else:
+        scratch = torch.empty(-(-n // _BUFFER_ROW), dtype=_I64,
+                              device=data.device)
     out = torch.empty((), dtype=_I64, device=data.device)
     _launch("ldrsx_checksum_buffer", kind, data.data_ptr(), n,
-            init & _MASK32, regs.data_ptr(), out.data_ptr(),
-            device=data.device)
+            init & _MASK32, scratch.data_ptr(), out.data_ptr(),
+            device=data.device, stream=stream)
     return out
 
 
@@ -330,7 +352,8 @@ def _rows(kind: int, data: torch.Tensor, lengths: torch.Tensor, chunk: int,
     out = torch.empty(b, dtype=_I64, device=data.device)
     if b:
         _launch("ldrsx_checksum_rows", kind, data.data_ptr(), data.stride(0),
-                b, s, n.data_ptr(), out.data_ptr(), device=data.device)
+                b, s, n.data_ptr(), out.data_ptr(), device=data.device,
+                stream=torch.cuda.current_stream(data.device))
     return out
 
 

@@ -60,6 +60,15 @@ the first body symbol or byte, and the last code-length symbol shares
 its step with the table build and the first body symbol, as in the JAX
 kernel when no lane stalls. Code-length symbol 16 repeats the previous
 *literal* code length, as the JAX kernel does.
+
+One verdict departs from the JAX kernel's on purpose: a stored byte that
+lies at or past a stream's end (or a segment's limit) makes the stream
+BAD, in the step that ends the final block too. The JAX kernel moves the
+stream to DONE in that step before its overrun check, which judges only
+active streams, so it accepts a stream whose final stored block is cut
+by one byte, with that byte read as 0; raw DEFLATE has no trailer that
+would catch it. Here such a stream falls back to the host, which rejects
+it as zlib does.
 """
 
 from __future__ import annotations
@@ -692,8 +701,6 @@ def _decode_rows(data, offsets, lengths, out_cap, row_stream, start_bit,
             i_cap = out_cap - outpos
             q = inbits - bitpos
             i_over = torch.where(q >= 0, q >> 3, 0)
-            last_final = (i_over == srem - 1) & (final == 1)
-            i_over = torch.where(last_final, _STORED_CHUNK + 1, i_over)
             by_cap = (i_cap < n) & (i_cap <= i_over)
             by_over = ~by_cap & (i_over < n)
             nemit = torch.where(by_cap, i_cap,

@@ -63,6 +63,32 @@ def mutated_streams(n: int, seed: int = 5) -> list[bytes]:
     return out
 
 
+
+def cut_stored_streams(seed: int = 41) -> list[tuple[bytes, bytes]]:
+    """(stream cut by one byte, original): raw-DEFLATE streams of random
+    bytes whose final block is a stored block that holds data, at zlib
+    levels 0 and 6 (one block), and at level 0 with a full flush before
+    the final block (a non-final stored block, the empty one of the
+    flush, then the final one). Cut by one byte, each loses the last
+    byte of its final stored block: the decoders must reject them.
+    Short enough for the JAX pass-1 kernel's 2048-step bucket (a stored
+    byte is one of its steps)."""
+    r = random.Random(seed)
+    out = []
+    for level in (0, 6):
+        for n in (1, 2, 31, 100, 257, 600, 1000, 1500):
+            d = r.randbytes(n)
+            z = raw_z(d, level)
+            if z[0] & 7 == 1:              # one final stored block
+                out.append((z[:-1], d))
+    for a, b in ((300, 200), (1000, 1)):
+        d = r.randbytes(a + b)
+        co = zlib.compressobj(0, zlib.DEFLATED, -15)
+        z = co.compress(d[:a]) + co.flush(zlib.Z_FULL_FLUSH) \
+            + co.compress(d[a:]) + co.flush()
+        out.append((z[:-1], d))
+    return out
+
 # ------------------------------------------- hand-built edge-case streams
 # Rows and streams at the edges of the stream kernels' staging and copies
 # (a row filled to its last byte, bits read past it, bytes past a
@@ -1216,10 +1242,13 @@ def v2_collision_traps(s: int, rng, add, background) -> None:
 
 # -- the device checksums' trap rows and buffers ------------------------------
 
-CHECKSUM_THREADS = 256      # threads a row of csrc/checksums.cu
+CHECKSUM_THREADS = 256      # threads a row of csrc/checksums.cu's Adler-32
+CHECKSUM_SPAN = 64          # bytes a thread's span of its CRC-32
+CHECKSUM_TILE = 65536       # bytes a CRC-32 step (1,024 spans): a wide
+                            # row's tile
 CHECKSUM_BUFFER_ROW = 65536     # bytes a row of one buffer in that kernel
-#: row widths: 4 bytes a thread, an odd count of 1,024-byte chunks, the
-#: main path's 64 KiB blocks
+#: row widths: 4 bytes an Adler thread, an odd count of 1,024-byte chunks,
+#: the main path's 64 KiB blocks
 CHECKSUM_WIDTHS = (1024, 5120, 65536)
 #: initial values of the buffer traps: 0, 1, and five Adler values whose
 #: halves are at or past the modulus 65,521
@@ -1230,12 +1259,39 @@ CHECKSUM_INITS = (0, 1, 0xFFFFFFFF, 0xFFF1FFF1, 0xFFF0FFF0, 0x0000FFFF,
 def checksum_lengths(s: int) -> list[int]:
     """Row lengths that reach the kernel's edges at width s: 0, 1, 7, 8,
     15, 16 (the head and tail bytes around a 16-byte load), every
-    thread's span boundary and one byte either side, s - 1 and s."""
+    Adler thread's span boundary and every CRC span's (each 64 bytes)
+    and one byte either side, s - 1 and s."""
     span = -(-s // CHECKSUM_THREADS)
     out = {0, 1, 7, 8, 15, 16, s - 1, s}
     for k in range(1, CHECKSUM_THREADS):
         out |= {k * span - 1, k * span, k * span + 1}
+    for k in range(1, -(-s // CHECKSUM_SPAN)):
+        out |= {k * CHECKSUM_SPAN - 1, k * CHECKSUM_SPAN,
+                k * CHECKSUM_SPAN + 1}
     return sorted(x for x in out if 0 <= x <= s)
+
+
+#: a width of four CRC tiles and one 1,024-byte chunk more
+CHECKSUM_WIDE = 4 * CHECKSUM_TILE + 1024
+
+
+def checksum_wide_rows(seed: int = 43):
+    """(rows (B, CHECKSUM_WIDE) uint8, lengths (B,) int64, numpy): rows
+    wider than a CRC tile, whose register carries from tile to tile: at
+    each tile edge and one byte and one span either side, 0, 1, 63, 65
+    and the width; every row zero past its length."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s, t, sp = CHECKSUM_WIDE, CHECKSUM_TILE, CHECKSUM_SPAN
+    lens = {0, 1, sp - 1, sp + 1, s - 1, s}
+    for k in range(1, 5):
+        lens |= {k * t - sp, k * t - 1, k * t, k * t + 1, k * t + sp + 3}
+    lens = sorted(x for x in lens if x <= s)
+    rows = np.zeros((len(lens), s), np.uint8)
+    for i, n in enumerate(lens):
+        rows[i, :n] = rng.integers(0, 256, n, dtype=np.uint8)
+    return rows, np.array(lens, np.int64)
 
 
 def checksum_rows(s: int, seed: int = 31):

@@ -21,6 +21,7 @@ import torch
 
 from _port_corpus import (CHECKSUM_INITS, CHECKSUM_WIDTHS, RESOLVE_CASES,
                           V2_SIZES, checksum_buffers, checksum_rows,
+                          checksum_wide_rows, cut_stored_streams,
                           edge_cases, edge_rows, emit_cases,
                           emit_chunk_cases, emit_pass_inputs,
                           emit_random_cases, emit_unaligned, l6_windows,
@@ -89,6 +90,33 @@ def test_segment_route_equals_plain_on_card(card, out_cap):
         assert torch.equal(st_k, st_p)
         assert torch.equal(tok_k, tok_p)
     assert it.SEGMENTS > segs + 2 * len(streams) and it.RERUNS > reruns
+
+
+def test_kernel_rejects_cut_stored_streams_on_card(card):
+    """Streams whose final stored block is cut by one byte: the kernel
+    equals the plain version (every one BAD) on both routes, and the
+    two-pass decoder gives None for each, counted as a pass-1 fallback,
+    in both resolve modes."""
+    from libdeflate_rsx_tpu_torch import BatchDecompressor
+    from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
+
+    cut = cut_stored_streams()
+    streams = [z for z, _ in cut] + [z + d[-1:] for z, d in cut]
+    args = it.pack_streams(streams, 65536, card)[:3]
+    tok_p, st_p = it.pass1_plain(*args, 65536)
+    n = len(cut)
+    assert st_p[:n, 0].tolist() == [it.BAD] * n
+    assert st_p[n:, 0].tolist() == [it.DONE] * n
+    for sync in (True, False):
+        tok_k, st_k = it.pass1(*args, 65536, _sync_stops=sync)
+        torch.cuda.synchronize()
+        assert torch.equal(st_k, st_p)
+        assert torch.equal(tok_k, tok_p)
+    for resolve in ("device", "host"):
+        bd = BatchDecompressor(use_device=True, resolve=resolve, device=card)
+        got = bd.decompress_batch(streams, [len(d) for _, d in cut] * 2)
+        assert got == [None] * n + [d for _, d in cut]
+        assert dict(bd.fallbacks) == {"pass1": n}
 
 
 def test_empty_batch_launches_nothing(card):
@@ -325,10 +353,32 @@ def test_checksum_kernel_equals_plain_on_trap_rows(card, width):
             assert ck.LAUNCHES == before + 2
 
 
+def test_checksum_kernel_equals_plain_on_wide_rows(card):
+    """Rows wider than the CRC kernel's 64 KiB tile (its register carried
+    from tile to tile), read in place and off 16 bytes: equal to the
+    plain versions and to zlib."""
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
+
+    rows, lens = checksum_wide_rows()
+    want_c = [zlib.crc32(r[:n].tobytes()) for r, n in zip(rows, lens)]
+    want_a = [zlib.adler32(r[:n].tobytes()) for r, n in zip(rows, lens)]
+    t = torch.from_numpy(rows).to(card)
+    n = torch.from_numpy(lens).to(card)
+    assert ck.crc32_blocks_plain(t, n).cpu().tolist() == want_c
+    assert ck.adler32_blocks_plain(t, n).cpu().tolist() == want_a
+    wide = torch.zeros((len(rows), rows.shape[1] + 32), dtype=torch.uint8,
+                       device=card)
+    wide[:, 5:5 + rows.shape[1]] = t
+    for v in (t, wide[:, 5:5 + rows.shape[1]]):
+        assert ck.crc32_blocks(v, n).cpu().tolist() == want_c
+        assert ck.adler32_blocks(v, n).cpu().tolist() == want_a
+
+
 def test_checksum_kernel_equals_plain_on_buffers(card):
-    """crc32_fixed and adler32_fixed (rows of 64 KiB, the last one short,
-    then the one-block fold) equal the plain versions and zlib at every
-    initial value; crc32_device never builds the plain version's host
+    """crc32_fixed and adler32_fixed (rows of 64 KiB, the last one short:
+    the CRC in one launch, Adler's rows then the one-block fold) equal
+    the plain versions and zlib at every initial value, the CRC's state
+    left zeroed; crc32_device never builds the plain version's host
     table."""
     from libdeflate_rsx_tpu_torch.ops import checksums as ck
 
@@ -345,6 +395,7 @@ def test_checksum_kernel_equals_plain_on_buffers(card):
             assert ck.crc32_device(data, init, card) == crc
             assert ck.adler32_device(data, init, card) == adler
     assert ck._crc_byte_table.cache_info().currsize == 0
+    assert not any(st.any() for st in ck._STATE.values())
     t = ck._padded(checksum_buffers()[-1], ck.CRC_CHUNK, card)
     for init in CHECKSUM_INITS:
         assert int(ck.crc32_fixed(t, 70000, init)) == \

@@ -16,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from _port_corpus import mutated_streams
+from _port_corpus import cut_stored_streams, mutated_streams
 from libdeflate_rsx_tpu.ops.pallas import inflate_tokens as jitk
 from libdeflate_rsx_tpu_torch import convert
+from libdeflate_rsx_tpu_torch.batch import SMALL_BATCH, BatchDecompressor
 from libdeflate_rsx_tpu_torch.ops import inflate_tokens as it
 from libdeflate_rsx_tpu_torch.ops.resolve import resolve_batch
+from libdeflate_rsx_tpu_torch.ops.tokens import resolve_tokens_np
 from tests.conftest import make_corpus
 
 torch.set_num_threads(2)
@@ -204,3 +206,67 @@ def test_stream_over_caps_and_out_cap():
     data, offs, lens, ok = it.pack_streams([_z(d)], 65536, "cpu")
     _, stats = it.pass1(data, offs, lens, 2048)
     assert stats[0, 0] == it.BAD and stats[0, 1] <= 2048
+
+
+# ------------------------------------------- final stored blocks cut short
+# Streams whose final stored block is cut by one byte: the port rejects
+# them (pass 1 BAD, the host decoder then fails too, as zlib does); the
+# JAX kernel accepts them with the missing byte read as 0.
+CUT = cut_stored_streams()
+
+
+def test_cut_stored_set_is_what_it_says():
+    assert len(CUT) >= SMALL_BATCH
+    for z, d in CUT:
+        o = zlib.decompressobj(-15)
+        assert o.decompress(z) == d[:-1] and not o.eof
+        assert zlib.decompress(z + d[-1:], -15) == d
+
+
+@pytest.mark.parametrize("route", ["segments", "serial", "plain"])
+def test_plain_pass1_rejects_cut_stored_streams(route):
+    """Every cut stream is BAD on each route of the plain pass 1, in one
+    batch with their uncut forms, which still decode to the originals."""
+    cut = [z for z, _ in CUT]
+    whole = [z + d[-1:] for z, d in CUT]
+    data, offs, lens, _ = it.pack_streams(cut + whole, 65536, "cpu")
+    if route == "plain":
+        tokens, stats = it.pass1_plain(data, offs, lens, 65536)
+    else:
+        tokens, stats = it.pass1(data, offs, lens, 65536,
+                                 _sync_stops=route == "segments")
+    n = len(CUT)
+    assert stats[:n, 0].tolist() == [it.BAD] * n
+    assert stats[n:, 0].tolist() == [it.DONE] * n
+    out, outlen, ok = resolve_batch(tokens[n:], 65536)
+    for i, (_, d) in enumerate(CUT):
+        assert bool(ok[i]) and out[i, :outlen[i]].numpy().tobytes() == d
+
+
+@pytest.mark.parametrize("resolve", ["device", "host"])
+def test_batch_gives_none_for_cut_stored_streams(resolve):
+    """On the two-pass route each cut stream gives None and counts a
+    pass-1 fallback; its uncut form, in the same batch, decodes."""
+    cut = [z for z, _ in CUT]
+    whole = [z + d[-1:] for z, d in CUT]
+    caps = [len(d) for _, d in CUT] * 2
+    bd = BatchDecompressor(use_device=True, resolve=resolve, device="cpu")
+    got = bd.decompress_batch(cut + whole, caps)
+    assert got == [None] * len(CUT) + [d for _, d in CUT]
+    assert dict(bd.fallbacks) == {"pass1": len(CUT)}
+
+
+def test_jax_kernel_accepts_cut_stored_streams():
+    """The JAX package's verdict differs on purpose: its pass 1 (the
+    suite's shared bucket, s=1 and 2048 steps) ends the final stored
+    block before its overrun check, so it decodes each cut stream to its
+    original length with the last byte read as 0. The port gives None
+    for the same streams."""
+    got = jitk.decode_tokens_device([z for z, _ in CUT], s=1,
+                                    max_steps=MAX_STEPS)
+    for (col, outlen), (_, d) in zip(got, CUT):
+        assert col is not None and outlen == len(d)
+        assert resolve_tokens_np(col, outlen) == d[:-1] + b"\x00"
+    port = it.inflate_device_tokens([z for z, _ in CUT], out_cap=65536,
+                                    device="cpu")
+    assert port == [None] * len(CUT)

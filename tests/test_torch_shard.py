@@ -19,7 +19,8 @@ import zlib
 
 import pytest
 
-from tests._port_corpus import make_corpus, mutated_streams
+from tests._port_corpus import (cut_stored_streams, make_corpus,
+                                mutated_streams)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANKS = 2
@@ -124,6 +125,8 @@ for resolve in ("host", "device"):
                               device="cpu")
     res[f"mixed/{resolve}"] = [hx(o)
                                for o in dec.decompress_batch(t.decode_mixed())]
+    res[f"cut/{resolve}"] = [hx(o) for o in dec.decompress_batch(
+        [z for z, _ in t.cut_stored_streams()])]
 res["jax_loaded"] = sorted(m for m in sys.modules if m.startswith("jax")
                            or m.split(".")[0] == "libdeflate_rsx_tpu")
 json.dump(res, open(out, "w"))
@@ -220,6 +223,15 @@ def test_dynamic_batch_equals_jax(port, mesh):
 def test_decoder_gives_the_originals(port, resolve):
     assert [unhex(o) for o in port[0][f"decode/{resolve}"]] == \
         decode_originals()
+
+
+@pytest.mark.parametrize("resolve", ["host", "device"])
+def test_decoder_gives_none_for_cut_stored_streams(port, resolve):
+    """Raw-DEFLATE streams whose final stored block is cut by one byte
+    give None on every rank (the JAX package's pass 1 accepts them with
+    the last byte read as 0: tests/test_torch_inflate_tokens.py)."""
+    for rank in port:
+        assert rank[f"cut/{resolve}"] == [None] * len(cut_stored_streams())
 
 
 @pytest.fixture(scope="module")
