@@ -212,18 +212,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    or of one buffer) against its plain versions on the card: the
    corpus's 259 rows of 64 KiB with int32 lengths (phase 19's call),
    the trap rows of tests/_port_corpus.py (checksum_rows at widths
-   1,024, 5,120 and 65,536: every span boundary +-1, the head and tail
-   lengths, all-0x00 and all-0xFF rows; int32 and int64 lengths) and
-   its rows wider than a CRC tile (checksum_wide_rows: the register
-   carried from tile to tile) and its trap buffers (checksum_buffers,
-   1 MiB + 3 bytes among them) at its trap initial values, the whole
-   corpus with and without an initial value: every register equal, and
-   equal to zlib, the CRC buffer route's state left zeroed; the corpus
-   as one buffer timed, its CRC one kernel launch (torch.profiler);
-   then crc32_blocks and adler32_blocks timed on the corpus's rows
-   beside their plain versions on the card (the record: the pair
-   summed; the bound the bytes each call must move: the corpus bytes,
-   the int32 lengths and the int64 registers).
+   1,024, 5,120 and 65,536: every CRC span edge and an Adler group
+   edge of every thread +-1, zlib's NMAX multiples, the head and tail
+   lengths, all-0x00 and all-0xFF rows; int32 and int64 lengths), its
+   rows wider than a tile (checksum_wide_rows: the CRC register
+   carried, Adler's tile terms added by atomics; again after a narrow
+   batch), all-0xFF rows of one to three tiles, rows at an odd stride
+   and the corpus as the compress items' 17 rows of 1 MiB, and its trap
+   buffers (checksum_buffers, 1 MiB + 3 bytes among them) at its trap
+   initial values, the whole corpus with and without an initial value,
+   a buffer twice in a row and on two streams: every register equal,
+   and equal to zlib, every state left zeroed; the corpus as one buffer
+   timed, each checksum one kernel launch (torch.profiler); then
+   crc32_blocks and adler32_blocks timed on the corpus's rows beside
+   their plain versions on the card (the record: the pair summed; the
+   bound the bytes each call must move: the corpus bytes, the int32
+   lengths and the int64 registers), and on the 17 rows of 1 MiB.
 
 Phases 13-21 drive the level 0-5 tiers, the checksums, the memory
 budget and the sharded paths; the kernels' launches there are logged
@@ -1799,9 +1803,11 @@ def pass1_columns(streams, out_cap: int):
 
 def kernel_times(fn, reps: int, tries: int = 3) -> dict:
     """{kernel name: device microseconds per call} of reps calls of fn
-    under torch.profiler (a name without its namespace and arguments);
-    profiled again, up to `tries` times, when a run records no device
-    time, which happens at random on the card machine."""
+    under torch.profiler (a name without its namespace and arguments):
+    the mean of the launches it recorded, times the launches a call
+    (rounded, at least 1), so that launches the profiler drops, which
+    happens at random on the card machine, do not lower it; profiled
+    again, up to `tries` times, when a run records no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1822,7 +1828,8 @@ def kernel_times(fn, reps: int, tries: int = 3) -> dict:
                 name = name.split("(")[0].split("::")[-1].split("<")[0] \
                     or e.key
                 got[name] = got.get(name, 0.0) + \
-                    e.self_device_time_total / reps
+                    e.self_device_time_total / e.count \
+                    * max(1, round(e.count / reps))
         if got:
             break
     return got
@@ -2344,13 +2351,16 @@ def phase_checksum_kernel(data: bytes, card: str):
     64 KiB rows with their int32 lengths (the sharded static tier's
     call) and on the trap rows of tests/_port_corpus.py (every span
     boundary +-1, the head and tail lengths, all-0x00 and all-0xFF rows;
-    int32 and int64 lengths) and its rows wider than a CRC tile;
+    int32 and int64 lengths), its rows wider than a tile (again after a
+    narrow batch), all-0xFF rows of one to three tiles, rows at an odd
+    stride and the corpus as the compress items' 17 rows of 1 MiB;
     crc32_fixed and adler32_fixed on the trap buffers at every trap
     initial value and on the whole corpus, with and without an initial
-    value (crc32_device and adler32_device equal to zlib), the CRC
-    state left zeroed; the corpus as one buffer timed, its CRC in one
-    kernel launch; then each of crc32_blocks and adler32_blocks timed
-    on the corpus's rows beside its plain version. The record is the
+    value (crc32_device and adler32_device equal to zlib), a buffer twice
+    in a row and on two streams, every state left zeroed; the corpus as
+    one buffer timed, each in one kernel launch; then each of
+    crc32_blocks and adler32_blocks timed on the corpus's rows beside
+    its plain version, and on the 17 rows of 1 MiB. The record is the
     pair as
     the sharded path calls it: ms and plain_ms summed, the bound the
     bytes each of the two calls must move (the corpus bytes, the int32
@@ -2358,7 +2368,8 @@ def phase_checksum_kernel(data: bytes, card: str):
     import numpy as np
     import torch
     from _port_corpus import (CHECKSUM_INITS, CHECKSUM_WIDTHS,
-                              checksum_buffers, checksum_rows,
+                              checksum_buffers, checksum_ff_rows,
+                              checksum_odd_stride, checksum_rows,
                               checksum_wide_rows)
     from libdeflate_rsx_tpu_torch.ops import checksums as ck
 
@@ -2403,6 +2414,43 @@ def phase_checksum_kernel(data: bytes, card: str):
         assert kernel(t, n).cpu().tolist() == \
             [ref(r[:k].tobytes()) for r, k in zip(wide, lens)], \
             f"{name} on the wide rows != zlib"
+    # the Adler traps of the tile design: all-0xFF rows of 1-3 tiles, rows
+    # at an odd stride with random bytes past each length (the plain
+    # versions on the zero-padded rows), the compress items' 17 rows of
+    # 1 MiB; a wide batch again after a narrow one
+    ff, ff_lens = checksum_ff_rows()
+    store, odd_lens = checksum_odd_stride()
+    odd = np.where(np.arange(store.shape[1] - 1) < odd_lens[:, None],
+                   store[:, :-1], 0).astype(np.uint8)
+    nitem = -(-len(data) // ITEM)
+    items = np.zeros((nitem, ITEM), np.uint8)
+    items.reshape(-1)[:len(data)] = np.frombuffer(data, np.uint8)
+    item_lens = np.array([min(ITEM, len(data) - i * ITEM)
+                          for i in range(nitem)], np.int64)
+    odd_view = torch.from_numpy(store).cuda()[:, :-1]
+    assert odd_view.stride(0) % 2 == 1
+    sets = (("all-0xFF rows of 1-3 tiles", ff, ff_lens,
+             torch.from_numpy(ff).cuda()),
+            ("rows at an odd stride", odd, odd_lens, odd_view),
+            (f"the corpus as {nitem} rows of 1 MiB", items, item_lens,
+             torch.from_numpy(items).cuda()))
+    for label, zeroed, lens, view in sets:
+        n = torch.from_numpy(lens).cuda()
+        for name, kernel, plain, ref in pairs:
+            got = kernel(view, n)
+            err = max(err, checksum_vs_plain(
+                lambda *_: got, plain, (torch.from_numpy(zeroed).cuda(), n),
+                label))
+            assert got.cpu().tolist() == \
+                [ref(r[:k].tobytes()) for r, k in zip(zeroed, lens)], \
+                f"{name} on {label} != zlib"
+    t = torch.from_numpy(wide).cuda()
+    w_lens = torch.from_numpy(checksum_wide_rows()[1]).cuda()
+    first = ck.adler32_blocks(t, w_lens)
+    ck.adler32_blocks(torch.from_numpy(checksum_rows(5120)[0]).cuda(),
+                      torch.from_numpy(checksum_rows(5120)[1]).cuda())
+    assert torch.equal(ck.adler32_blocks(t, w_lens), first), \
+        "adler32_blocks on wide rows differs after a narrow batch"
     fixed = (("crc32_fixed", ck.crc32_fixed, ck.crc32_fixed_plain,
               zlib.crc32),
              ("adler32_fixed", ck.adler32_fixed, ck.adler32_fixed_plain,
@@ -2422,12 +2470,27 @@ def phase_checksum_kernel(data: bytes, card: str):
     a, b = data[:len(data) // 3], data[len(data) // 3:]
     assert ck.crc32_device(b, zlib.crc32(a)) == zlib.crc32(data)
     assert ck.adler32_device(b, zlib.adler32(a)) == zlib.adler32(data)
+    # the buffer route's state: two calls in a row, and calls on two streams
+    big = checksum_buffers()[0]
+    buf = ck._padded(big, ck.CRC_CHUNK, "cuda")
+    want = [zlib.adler32(big, 5), zlib.crc32(big, 5)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for s in [None, None] + streams:
+        with torch.cuda.stream(s or torch.cuda.current_stream()):
+            outs.append((ck.adler32_fixed(buf, len(big), 5),
+                         ck.crc32_fixed(buf, len(big), 5)))
+    torch.cuda.synchronize()
+    assert all([int(x) for x in o] == want for o in outs), \
+        "a buffer's checksums differ across calls or streams"
     log(f"checksums kernel on the corpus's {nblk} rows, {ntrap} trap rows "
         f"at widths {CHECKSUM_WIDTHS} (int32 and int64 lengths), "
-        f"{len(wide)} rows of {wide.shape[1]} bytes, "
-        f"{len(bufs)} buffers (the corpus among them) at their initial "
-        f"values: equal to the plain versions and to zlib (max abs err "
-        f"{err}); the CRC state left zeroed")
+        f"{len(wide)} rows of {wide.shape[1]} bytes (again after a narrow "
+        f"batch), {len(ff)} all-0xFF rows, {len(odd)} rows at an odd "
+        f"stride, the corpus as {nitem} rows of 1 MiB, {len(bufs)} buffers "
+        f"(the corpus among them) at their initial values, a buffer twice "
+        f"and on two streams: equal to the plain versions and to zlib (max "
+        f"abs err {err}); every state left zeroed")
     assert not any(st.any() for st in ck._STATE.values())
     buf = ck._padded(data, ck.CRC_CHUNK, "cuda")
     for name, fn in (("crc32_fixed", ck.crc32_fixed),
@@ -2439,9 +2502,9 @@ def phase_checksum_kernel(data: bytes, card: str):
             f"(torch.profiler): " + ", ".join(
                 f"{k} {v:.2f}" for k, v in sorted(dev.items()))
             + f" [{card}]")
-        if name == "crc32_fixed":
-            assert len(dev) == 1 and "crc_kernel" in next(iter(dev)), \
-                f"the CRC buffer route launched {sorted(dev)}"
+        kind = "crc_kernel" if name == "crc32_fixed" else "adler_kernel"
+        assert len(dev) == 1 and kind in next(iter(dev)), \
+            f"the {name} buffer route launched {sorted(dev)}"
     del buf
     nbytes = len(data) + 4 * nblk + 8 * nblk
     ms = plain_ms = 0.0
@@ -2457,6 +2520,18 @@ def phase_checksum_kernel(data: bytes, card: str):
             + ", ".join(f"{k} {v:.2f}" for k, v in sorted(dev.items()))
             + f" [{card}]")
         ms, plain_ms = ms + k_ms, plain_ms + p_ms
+    rows = torch.from_numpy(items).cuda()
+    lengths = torch.from_numpy(item_lens).cuda()
+    i_bytes = len(data) + 16 * nitem
+    for name, kernel, plain, _ in pairs:
+        k_ms = time_cuda(lambda: kernel(rows, lengths), KERNEL_REPS)
+        p_ms = time_cuda(lambda: plain(rows, lengths), KERNEL_REPS)
+        log(f"{name} on the corpus as {nitem} rows of 1 MiB (the compress "
+            f"items): kernel {k_ms:.4f} ms, plain version {p_ms:.3f} ms on "
+            f"the card (CUDA events, {KERNEL_REPS} calls each); bound "
+            f"{i_bytes / HBM_BYTES_PER_MS:.6f} ms ({i_bytes} bytes) "
+            f"[{card}]")
+    del rows
     for name, fn in (("crc32_device", ck.crc32_device),
                      ("adler32_device", ck.adler32_device)):
         torch.cuda.synchronize()

@@ -59,16 +59,36 @@
 //   next launch. XOR is order-free, so the result is exact whatever the
 //   order the blocks finish in.
 //
-// Adler-32 (adler_rows_kernel, adler_fold_kernel): a 256-thread block a
-// row, each thread over a contiguous span (a row's width over 256
-// threads) with the running sums s1 += d, s2 += s1 in 32 bits, reduced
-// mod 65,521 every 256 16-byte groups (below 2^32 in between: at most
-// 4,238 bytes with the head, the last single groups and the tail), 16-byte
-// loads where aligned, 8 in flight a thread; the spans fold in order
-// within a warp by shuffles and across the warps through shared memory by
-// s1 = s1a + s1b, s2 = s2a + len_b s1a + s2b mod 65,521. One buffer is
-// rows of 64 KiB whose sums a one-block launch folds in order, applying
-// the initial value. Sizes and offsets are 64-bit.
+// Adler-32 (adler_kernel). Adler's sums are linear in the message: a piece
+// of L bytes at offset o of an n-byte message, with the zero-start sums A =
+// sum d_i and B = sum (L - i) d_i, adds A to s1 and B + A (n - o - L) to
+// s2, mod 65,521, whatever the order the pieces are added in. What the
+// design does about the bound:
+// - a persistent grid over tiles of 65,536 bytes of a row (as many
+//   256-thread blocks as are resident, or a block a tile if fewer), tile
+//   blockIdx.x + j gridDim.x in turn; a tile is cut at its row's length,
+//   so the padding is not read, and a tile past it is skipped; a row
+//   narrower than a tile takes one alone, so the corpus's 64 KiB rows are
+//   read at full width;
+// - thread t takes groups t + 256 k (k < 16) of 16 bytes: every 16-byte
+//   load of the tile in flight at once (single bytes where the rows are
+//   not 16-byte aligned, and for the group the length cuts), each warp's
+//   loads 512 adjacent bytes;
+// - a group's sums are 8 dp4a: its byte sum into s1 (weights 1, 1, 1, 1),
+//   its sum weighted 16 .. 1 into w, after r += s1; in 32 bits with one
+//   reduction a thread (the bound is stated at A_MAX and B_MAX below);
+// - every thread's part is its share of the tile's sum weighted by the
+//   bytes to the tile's full end, so the block only adds: shuffles of
+//   32-bit values below 2^32, shared memory, one reduction (no 64-bit %
+//   in the fold);
+// - a row of one tile ends in its block; a longer row's tiles atomicAdd
+//   their terms into two 64-bit words of the row, then a __threadfence
+//   and a counter in a third, and the tile that finishes last ends the
+//   row, applies the initial value and zeroes the words;
+// - one buffer is one row of its length in the same launch, the initial
+//   value its own (a row's is 1); its words are a set a stream.
+// Its bound is the CRC's: the bytes read once, 0.005056 ms for the corpus's
+// 259 rows.
 //
 // A launch allocates nothing and does not synchronise; each C entry returns
 // the launch's error code.
@@ -469,174 +489,246 @@ __global__ void __launch_bounds__(CRC_THREADS, 1) crc_kernel(CrcArgs a) {
 
 // -- Adler-32 ---------------------------------------------------------------
 
-constexpr int ROW_THREADS = 256;       // threads a row
-constexpr int64_t BUFFER_ROW = 65536;  // bytes a row of one buffer
-constexpr int FOLD_THREADS = 256;      // threads of the one-block fold
-constexpr uint32_t MOD = 65521u;       // Adler-32 modulus
-constexpr int ADLER_GROUPS = 256;      // 16-byte groups between mod steps
-constexpr int BATCH = 8;               // 16-byte loads in flight a thread
+constexpr uint32_t MOD = 65521u;            // Adler-32 modulus
+constexpr int ADLER_THREADS = 256;          // threads a block
+constexpr int ADLER_WARPS = ADLER_THREADS / 32;
+constexpr int GROUP = 16;                   // bytes a group: one 16-byte load
+constexpr int ADLER_TILE = 65536;           // bytes a tile of a row
+constexpr int STRIDE = GROUP * ADLER_THREADS;   // bytes from a slot to the next
+constexpr int SLOTS = ADLER_TILE / STRIDE;  // groups a thread a tile
+constexpr uint32_t ONES = 0x01010101u;
+// the weights 16 .. 1 of a group's bytes 0 .. 15, four a word, byte 0 lowest
+constexpr uint32_t W0 = 0x0D0E0F10u, W1 = 0x090A0B0Cu, W2 = 0x05060708u,
+                   W3 = 0x01020304u;
 
-// A piece of a message: Adler's s1, s2 of a zero start, both reduced, and
-// its length in bytes. The empty piece {0, 0, 0} is the fold's identity.
-struct Sums {
-  uint32_t a, b;
-  int64_t len;
+// The bound that sets the mod schedule: a thread sums a tile's groups in 32
+// bits and reduces once, after its last. With every byte 0xFF, its s1 is at
+// most SLOTS 16 255 = 65,280 (below the modulus, so it needs no reduction),
+// its weighted sum w at most SLOTS 136 255 = 554,880, its running sum r at
+// most 16 255 SLOTS (SLOTS - 1) / 2 = 489,600, and its b = w + E s1 +
+// STRIDE r + the cut group's term, with E below 16 ADLER_THREADS and that
+// term below 15 255 ADLER_TILE + 135 255, at most 2,524,052,985: below 2^32.
+// (zlib's NMAX, 5,552 bytes, bounds the running sums of one long span; a
+// thread here never sums more than its 16 groups of one tile.)
+constexpr uint64_t A_MAX = uint64_t(SLOTS) * GROUP * 255;
+constexpr uint64_t B_MAX =
+    uint64_t(SLOTS) * 136 * 255 + uint64_t(GROUP) * ADLER_THREADS * A_MAX +
+    uint64_t(STRIDE) * GROUP * 255 * SLOTS * (SLOTS - 1) / 2 +
+    uint64_t(GROUP - 1) * 255 * ADLER_TILE + 135 * 255;
+static_assert(A_MAX < MOD, "a thread's s1 needs no reduction");
+static_assert(B_MAX < (1ull << 32), "a thread's b fits 32 bits");
+static_assert(uint64_t(ADLER_THREADS) * MOD < (1ull << 32),
+              "the block's sums of reduced values fit 32 bits");
+
+struct AdlerArgs {
+  const uint8_t* data;
+  int64_t stride;            // bytes from a row to the next
+  int64_t width;             // bytes a row (one buffer: its length)
+  const int64_t* lengths;    // a row's length; null: `width`
+  int64_t per_row;           // tiles a row: ceil(width / ADLER_TILE), >= 1
+  int64_t tiles;             // rows * per_row
+  uint32_t init;             // the initial value: 1 for rows
+  unsigned long long* acc;   // 3 words a row (the tiles' sums of A and
+                             // of B, the tiles done), zeroed; null if
+                             // per_row is 1
+  int64_t* out;              // (rows,) Adler-32s
+  long long* stages;         // block 0's clock stamps, or null
 };
 
-__device__ __forceinline__ Sums combine(const Sums& x, const Sums& y) {
-  Sums r;
-  r.len = x.len + y.len;
-  r.a = (x.a + y.a) % MOD;
-  r.b = static_cast<uint32_t>((static_cast<uint64_t>(x.b) + y.b +
-                               static_cast<uint64_t>(y.len % MOD) * x.a) %
-                              MOD);
-  return r;
-}
-
-// In order over the warp's lanes; lane 0 holds the result.
-__device__ __forceinline__ Sums warp_fold(Sums p) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    Sums q;
-    q.a = __shfl_down_sync(0xFFFFFFFFu, p.a, off);
-    q.b = __shfl_down_sync(0xFFFFFFFFu, p.b, off);
-    q.len = __shfl_down_sync(0xFFFFFFFFu, p.len, off);
-    if ((lane & (2 * off - 1)) == 0) p = combine(p, q);
-  }
-  return p;
-}
-
-// In order over the block's threads; thread 0 holds the result.
-template <int THREADS>
-__device__ __forceinline__ Sums block_fold(Sums p, Sums* warps) {
-  p = warp_fold(p);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) warps[warp] = p;
-  __syncthreads();
-  if (warp == 0) {
-    p = lane < THREADS / 32 ? warps[lane] : Sums{0, 0, 0};
-    p = warp_fold(p);
-  }
-  return p;
-}
-
-__device__ __forceinline__ void adler_word(uint32_t& s1, uint32_t& s2,
-                                           uint32_t w) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    s1 += (w >> (8 * k)) & 0xFF;
-    s2 += s1;
-  }
-}
-
-__device__ __forceinline__ void group(uint32_t& s1, uint32_t& s2,
-                                      const uint4& w) {
-  adler_word(s1, s2, w.x);
-  adler_word(s1, s2, w.y);
-  adler_word(s1, s2, w.z);
-  adler_word(s1, s2, w.w);
-}
-
-// The sums reduced once ADLER_GROUPS groups have been added.
-__device__ __forceinline__ void adler_mod(int& groups, int added,
-                                          uint32_t& s1, uint32_t& s2) {
-  groups += added;
-  if (groups >= ADLER_GROUPS) {
-    groups = 0;
-    s1 %= MOD;
-    s2 %= MOD;
-  }
-}
-
-// The sums of bytes [begin, end) of p: single bytes up to a 16-byte
-// boundary, batches of BATCH 16-byte loads issued together, then single
-// 16-byte groups, then single bytes.
-__device__ Sums span_sums(const uint8_t* __restrict__ p, int64_t begin,
-                          int64_t end) {
-  uint32_t s1 = 0, s2 = 0;
-  int64_t i = begin;
-  for (; i < end && (reinterpret_cast<uintptr_t>(p + i) & 15); ++i) {
-    s1 += p[i];
-    s2 += s1;
-  }
-  int groups = 0;
-  for (; i + 16 * BATCH <= end; i += 16 * BATCH) {
-    uint4 w[BATCH];
-#pragma unroll
-    for (int k = 0; k < BATCH; ++k)
-      w[k] = __ldg(reinterpret_cast<const uint4*>(p + i) + k);
-#pragma unroll
-    for (int k = 0; k < BATCH; ++k) group(s1, s2, w[k]);
-    adler_mod(groups, BATCH, s1, s2);
-  }
-  for (; i + 16 <= end; i += 16) {
-    group(s1, s2, __ldg(reinterpret_cast<const uint4*>(p + i)));
-    adler_mod(groups, 1, s1, s2);
-  }
-  for (; i < end; ++i) {
-    s1 += p[i];
-    s2 += s1;
-  }
-  const int64_t len = end > begin ? end - begin : 0;
-  return Sums{s1 % MOD, s2 % MOD, len};
-}
-
-// One block a row: row r is data[r * stride ...] and its length
-// lengths[r] (else total - r * stride), cut to [0, width]. out[r] is the
-// row's Adler-32 (init 1), or with raw its (s2 << 16 | s1) from zero.
-__global__ void __launch_bounds__(ROW_THREADS)
-    adler_rows_kernel(const uint8_t* __restrict__ data, int64_t stride,
-                      int64_t width, const int64_t* __restrict__ lengths,
-                      int64_t total, int raw, int64_t* __restrict__ out) {
-  __shared__ Sums warps[ROW_THREADS / 32];
-  const int64_t row = blockIdx.x;
-  int64_t len = lengths ? lengths[row] : total - row * stride;
-  len = len < 0 ? 0 : (len > width ? width : len);
-  const int64_t span = (width + ROW_THREADS - 1) / ROW_THREADS;
-  const int64_t b0 = threadIdx.x * span;
-  const int64_t begin = b0 < len ? b0 : len;
-  const int64_t end = b0 + span < len ? b0 + span : len;
-  Sums p = span_sums(data + row * stride, begin, end);
-  p = block_fold<ROW_THREADS>(p, warps);
-  if (threadIdx.x != 0) return;
-  int64_t v;
-  if (raw) {
-    v = static_cast<int64_t>(p.b) << 16 | p.a;
+// A group of 16 bytes at p: one 16-byte load, or single bytes (a row view
+// that is not 16-byte aligned).
+template <bool ALIGNED>
+__device__ __forceinline__ uint4 load_group(const uint8_t* __restrict__ p) {
+  if constexpr (ALIGNED) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
   } else {
-    const uint32_t s1 = (1 + p.a) % MOD;
-    const uint32_t s2 = static_cast<uint32_t>((p.b + len % MOD) % MOD);
-    v = static_cast<int64_t>(s2) << 16 | s1;
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      w[k] = __ldg(p + 4 * k) | __ldg(p + 4 * k + 1) << 8 |
+             __ldg(p + 4 * k + 2) << 16 |
+             static_cast<uint32_t>(__ldg(p + 4 * k + 3)) << 24;
+    return make_uint4(w[0], w[1], w[2], w[3]);
   }
-  out[row] = v;
 }
 
-// One block: the rows' raw sums of one buffer of `total` bytes (rows of
-// BUFFER_ROW bytes, the last one short) folded in order, then the
-// initial value `init` applied: out[0] is the buffer's Adler-32
-// continuing from it.
-__global__ void __launch_bounds__(FOLD_THREADS)
-    adler_fold_kernel(const int64_t* __restrict__ regs, int64_t rows,
-                      int64_t total, uint32_t init,
-                      int64_t* __restrict__ out) {
-  __shared__ Sums warps[FOLD_THREADS / 32];
-  const int64_t per = (rows + FOLD_THREADS - 1) / FOLD_THREADS;
-  const int64_t r0 = threadIdx.x * per;
-  const int64_t r1 = r0 + per < rows ? r0 + per : rows;
-  Sums acc{0, 0, 0};
-  for (int64_t r = r0; r < r1; ++r) {
-    const int64_t left = total - r * BUFFER_ROW;
-    const uint32_t v = static_cast<uint32_t>(regs[r]);
-    const Sums q{v & 0xFFFF, v >> 16, left < BUFFER_ROW ? left : BUFFER_ROW};
-    acc = r == r0 ? q : combine(acc, q);
+// Bytes [0, m) of the group at p, m < GROUP, zero past them.
+__device__ __forceinline__ uint4 load_cut(const uint8_t* __restrict__ p,
+                                          int m) {
+  uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < GROUP - 1; ++i)
+    if (i < m) w[i >> 2] |= static_cast<uint32_t>(__ldg(p + i)) << (8 * (i & 3));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// s + the group's byte sum, and s + its sum weighted 16 .. 1
+__device__ __forceinline__ uint32_t group_a(const uint4& v, uint32_t s) {
+  return __dp4a(v.w, ONES, __dp4a(v.z, ONES, __dp4a(v.y, ONES,
+                                                     __dp4a(v.x, ONES, s))));
+}
+
+__device__ __forceinline__ uint32_t group_w(const uint4& v, uint32_t s) {
+  return __dp4a(v.w, W3, __dp4a(v.z, W2, __dp4a(v.y, W1, __dp4a(v.x, W0, s))));
+}
+
+__device__ __forceinline__ void stamp_at(long long* stages, int k) {
+  if (k < 64) stages[k] = clock64();
+}
+
+// The row's Adler-32 from its sums A = sum d, B = sum (n - i) d_i (each
+// reduced) and the initial value.
+__device__ __forceinline__ void adler_finish(const AdlerArgs& a, int64_t row,
+                                             int64_t n, uint64_t A,
+                                             uint64_t B) {
+  const uint64_t s1_in = a.init & 0xFFFF, s2_in = a.init >> 16;
+  const uint64_t s1 = (s1_in + A) % MOD;
+  const uint64_t s2 = (s2_in + static_cast<uint64_t>(n % MOD) * s1_in + B) %
+                      MOD;
+  a.out[row] = static_cast<int64_t>(s2 << 16 | s1);
+}
+
+// Adler-32s of rows (init 1) or of one buffer (a row of `width` bytes from
+// init). A persistent grid over tiles of ADLER_TILE bytes of a row, tile
+// blockIdx.x + j gridDim.x in turn, each cut at its row's length (a tile
+// past it is skipped). Thread t sums groups t + ADLER_THREADS k of its tile
+// (every load of the tile in flight at once) with dp4a: s1 the byte sum,
+// r += s1 before each group, w the sums weighted 16 .. 1; its part of the
+// tile's sum weighted by the bytes to the tile's full end, b = w + E s1 +
+// STRIDE r with E the bytes after its last slot, is reduced once and the
+// block adds the parts. The tile's term is (A, B + A (n - start -
+// ADLER_TILE)): a row of one tile ends there, a longer row's tiles add it
+// into the row's words and the last to finish (a counter) ends the row and
+// zeroes them. With stages, block 0 stamps each tile's start, its loads'
+// arrival, the group sums, the block's sums, the atomics and the finish.
+template <bool ALIGNED>
+__global__ void __launch_bounds__(ADLER_THREADS) adler_kernel(AdlerArgs a) {
+  __shared__ uint32_t parts[2][2][ADLER_WARPS];   // [tile parity][A, B][warp]
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const bool timed = a.stages != nullptr && blockIdx.x == 0;
+  int ns = 0, par = 0;
+  for (int64_t tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+    const int64_t row = tile / a.per_row;
+    const int64_t start = (tile - row * a.per_row) * ADLER_TILE;
+    int64_t n = a.lengths ? a.lengths[row] : a.width;
+    n = n < 0 ? 0 : (n > a.width ? a.width : n);
+    if (start > 0 && start >= n) continue;
+    const int len =
+        static_cast<int>(n - start < ADLER_TILE ? n - start : ADLER_TILE);
+    const uint8_t* p = a.data + row * a.stride + start;
+    if (timed && t == 0) stamp_at(a.stages, ns++);
+    uint4 v[SLOTS];
+#pragma unroll
+    for (int k = 0; k < SLOTS; ++k) {
+      const int o = GROUP * t + STRIDE * k;
+      v[k] = o + GROUP <= len ? load_group<ALIGNED>(p + o)
+                              : make_uint4(0, 0, 0, 0);
+    }
+    const int cut = len & ~(GROUP - 1), m = len & (GROUP - 1);
+    const bool has_cut = m && (cut / GROUP) % ADLER_THREADS == t;
+    const uint4 vc = has_cut ? load_cut(p + cut, m) : make_uint4(0, 0, 0, 0);
+    if (timed) {
+      uint32_t x = vc.x;
+#pragma unroll
+      for (int k = 0; k < SLOTS; ++k) x ^= v[k].x ^ v[k].y ^ v[k].z ^ v[k].w;
+      asm volatile("" ::"r"(x));
+      __syncthreads();
+      if (t == 0) stamp_at(a.stages, ns++);
+    }
+    uint32_t s1 = 0, r = 0, w = 0;
+#pragma unroll
+    for (int k = 0; k < SLOTS; ++k) {
+      r += s1;
+      s1 = group_a(v[k], s1);
+      w = group_w(v[k], w);
+    }
+    const uint32_t ac = group_a(vc, 0);
+    uint32_t b = (w + GROUP * (ADLER_THREADS - 1 - t) * s1 + STRIDE * r +
+                  group_w(vc, 0) + ac * (ADLER_TILE - GROUP - cut)) %
+                 MOD;
+    uint32_t av = s1 + ac;
+    if (timed) {
+      __syncthreads();
+      if (t == 0) stamp_at(a.stages, ns++);
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+      av += __shfl_xor_sync(0xFFFFFFFFu, av, off);
+      b += __shfl_xor_sync(0xFFFFFFFFu, b, off);
+    }
+    if (lane == 0) {
+      parts[par][0][warp] = av;
+      parts[par][1][warp] = b;
+    }
+    __syncthreads();
+    if (t == 0) {
+      uint32_t A = 0, B = 0;
+#pragma unroll
+      for (int i = 0; i < ADLER_WARPS; ++i) {
+        A += parts[par][0][i];
+        B += parts[par][1][i];
+      }
+      A %= MOD;
+      // (n - start - ADLER_TILE) mod MOD: the bytes after the tile's full
+      // end, negative in a row's last tile
+      const uint32_t f = static_cast<uint32_t>(
+          ((n - start) % MOD + MOD - ADLER_TILE % MOD) % MOD);
+      B = (B % MOD + A * f) % MOD;
+      if (timed) stamp_at(a.stages, ns++);
+      const int64_t nt = (n + ADLER_TILE - 1) / ADLER_TILE;  // the row's
+      unsigned long long* acc = nt > 1 ? a.acc + 3 * row : nullptr;
+      uint64_t sa = A, sb = B;
+      bool last = true;
+      if (nt > 1) {
+        atomicAdd(acc, static_cast<unsigned long long>(A));
+        atomicAdd(acc + 1, static_cast<unsigned long long>(B));
+        __threadfence();
+        last = static_cast<int64_t>(atomicAdd(acc + 2, 1ull)) == nt - 1;
+        if (last) {
+          __threadfence();
+          sa = atomicExch(acc, 0ull);
+          sb = atomicExch(acc + 1, 0ull);
+          atomicExch(acc + 2, 0ull);
+        }
+      }
+      if (timed) stamp_at(a.stages, ns++);
+      if (last) adler_finish(a, row, n, sa % MOD, sb % MOD);
+      if (timed) stamp_at(a.stages, ns++);
+    }
+    par ^= 1;
   }
-  acc = block_fold<FOLD_THREADS>(acc, warps);
-  if (threadIdx.x != 0) return;
-  const uint64_t s1_in = init & 0xFFFF, s2_in = init >> 16;
-  const uint64_t s1 = (s1_in + acc.a) % MOD;
-  const uint64_t s2 =
-      (s2_in + static_cast<uint64_t>(total % MOD) * s1_in + acc.b) % MOD;
-  out[0] = static_cast<int64_t>(s2 << 16 | s1);
+}
+
+// The Adler kernel's launch: as many blocks as are resident (the occupancy
+// calculator's count an SM, kept a device), or a block a tile if fewer;
+// 16-byte loads where every row starts 16-byte aligned.
+template <bool ALIGNED>
+int launch_adler_as(const AdlerArgs& a, cudaStream_t s) {
+  static int resident[64];   // blocks resident on the card, by device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int slots = dev < 64 ? resident[dev] : 0;
+  if (slots == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, adler_kernel<ALIGNED>, ADLER_THREADS, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    slots = per_sm * sms;
+    if (dev < 64) resident[dev] = slots;
+  }
+  const int64_t grid = a.tiles < slots ? a.tiles : slots;
+  adler_kernel<ALIGNED><<<static_cast<unsigned>(grid), ADLER_THREADS, 0, s>>>(
+      a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_adler(const AdlerArgs& a, cudaStream_t s) {
+  const bool aligned = !(reinterpret_cast<uintptr_t>(a.data) & 15) &&
+                       !(a.stride & 15);
+  return aligned ? launch_adler_as<true>(a, s) : launch_adler_as<false>(a, s);
 }
 
 // The CRC kernel's launch: a block an SM at most, its tables' shared
@@ -676,11 +768,13 @@ long long* stages_ptr() {
 
 // kind 0: CRC-32, 1: Adler-32, of each of `rows` rows of `width` bytes,
 // row r at data + r * stride, cut at lengths[r] (int64): out (rows,)
-// int64.
+// int64. scratch: for Adler with `width` past 65,536 bytes, 3 uint64 words
+// a row, zeroed before the first launch and left zeroed by each (one set a
+// stream); else unused (may be null).
 extern "C" int ldrsx_checksum_rows(int kind, const void* data,
                                    int64_t stride, int64_t rows,
                                    int64_t width, const void* lengths,
-                                   void* out, void* stream) {
+                                   void* scratch, void* out, void* stream) {
   if (rows <= 0) return 0;
   if ((kind != CRC && kind != ADLER) || rows > MAX_ROWS || width < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -689,9 +783,14 @@ extern "C" int ldrsx_checksum_rows(int kind, const void* data,
   const auto* n = static_cast<const int64_t*>(lengths);
   auto* o = static_cast<int64_t*>(out);
   if (kind == ADLER) {
-    adler_rows_kernel<<<dim3(static_cast<unsigned>(rows)), ROW_THREADS, 0,
-                        s>>>(d, stride, width, n, 0, 0, o);
-    return static_cast<int>(cudaGetLastError());
+    const int64_t per_row =
+        width > ADLER_TILE ? (width + ADLER_TILE - 1) / ADLER_TILE : 1;
+    if (per_row > 1 && scratch == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const AdlerArgs a{d, stride, width, n, per_row, rows * per_row, 1u,
+                      static_cast<unsigned long long*>(scratch), o,
+                      stages_ptr()};
+    return launch_adler(a, s);
   }
   const int64_t narrow = width < TILE ? width : TILE;
   int tp = static_cast<int>((narrow + SPAN - 1) / SPAN);
@@ -703,38 +802,39 @@ extern "C" int ldrsx_checksum_rows(int kind, const void* data,
 }
 
 // kind 0: CRC-32, 1: Adler-32, of data[:length] continuing from init:
-// out () int64. scratch: for the CRC, 3 uint32 words, zeroed before the
-// first launch and left zeroed by each (one set a stream); for Adler,
-// ceil(length / 65,536) int64 row sums.
+// out () int64. scratch: for the CRC 3 uint32 words, for Adler 3 uint64
+// words, zeroed before the first launch and left zeroed by each (one set a
+// stream). One launch.
 extern "C" int ldrsx_checksum_buffer(int kind, const void* data,
                                      int64_t length, uint32_t init,
                                      void* scratch, void* out, void* stream) {
-  const int64_t row = kind == CRC ? TILE : BUFFER_ROW;
-  const int64_t rows = length > 0 ? (length + row - 1) / row : 0;
+  const int64_t rows = length > 0 ? (length + TILE - 1) / TILE : 0;
   if ((kind != CRC && kind != ADLER) || rows <= 0 || rows > MAX_ROWS)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* d = static_cast<const uint8_t*>(data);
   auto* o = static_cast<int64_t*>(out);
-  if (kind == CRC) {
-    const uint32_t term = multmodp(x8nmodp(length), init ^ 0xFFFFFFFFu);
-    const CrcArgs a{d, TILE, TILE, nullptr, rows, length, TILE / SPAN, 1,
-                    rows, o, static_cast<uint32_t*>(scratch), term,
-                    stages_ptr()};
-    return launch_crc<true>(a, s);
+  if (kind == ADLER) {
+    const int64_t tiles = (length + ADLER_TILE - 1) / ADLER_TILE;
+    const AdlerArgs a{d, 0, length, nullptr, tiles, tiles, init,
+                      static_cast<unsigned long long*>(scratch), o,
+                      stages_ptr()};
+    return launch_adler(a, s);
   }
-  auto* regs = static_cast<int64_t*>(scratch);
-  const dim3 grid(static_cast<unsigned>(rows));
-  adler_rows_kernel<<<grid, ROW_THREADS, 0, s>>>(d, BUFFER_ROW, BUFFER_ROW,
-                                                 nullptr, length, 1, regs);
-  adler_fold_kernel<<<1, FOLD_THREADS, 0, s>>>(regs, rows, length, init, o);
-  return static_cast<int>(cudaGetLastError());
+  const uint32_t term = multmodp(x8nmodp(length), init ^ 0xFFFFFFFFu);
+  const CrcArgs a{d, TILE, TILE, nullptr, rows, length, TILE / SPAN, 1,
+                  rows, o, static_cast<uint32_t*>(scratch), term,
+                  stages_ptr()};
+  return launch_crc<true>(a, s);
 }
 
 #ifdef LDRSX_STAGES
-// Block 0's clock stamps of the last launch (64 int64), copied to host.
+// Block 0's clock stamps of the last launch (64 int64), copied to host,
+// then cleared.
 extern "C" int ldrsx_checksum_stages(void* host) {
-  return static_cast<int>(
-      cudaMemcpyFromSymbol(host, g_stages, sizeof(long long) * 64));
+  static const long long zero[64] = {};
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_stages, sizeof zero);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_stages, zero, sizeof zero);
+  return static_cast<int>(e);
 }
 #endif

@@ -13,9 +13,13 @@ span by slice-by-4 from tables a copy a lane, the spans folded by one
 multiplication each with an operator from a table; one buffer as rows
 of 64 KiB in the same launch, the block that finishes last ending it
 (its three state words, zeroed once a stream and left zeroed by every
-launch). The Adler-32 kernel runs a thread block a row with the running
-sums a span, folded in order; one buffer as rows of 64 KiB folded by a
-second, one-block launch. The plain versions, in plain PyTorch:
+launch). The Adler-32 kernel runs a persistent grid over tiles of 64 KiB
+of a row, each thread's 16-byte groups summed by dp4a, the block's parts
+only added; a row of one tile ends in its block, a longer row's tiles
+add their terms into the row's words by atomics and the last one ends
+it; one buffer is one row in the same launch. Its words (three a wide
+row, three for a buffer) are zeroed once a stream and left zeroed by
+every launch. The plain versions, in plain PyTorch:
 
 - **CRC-32.** The register is GF(2)-linear in the message, so the
   zero-init register of a CRC_CHUNK-byte chunk is the XOR over its bytes
@@ -57,9 +61,10 @@ _I64 = torch.int64
 #: C calls made by the dispatchers on CUDA tensors (the plain versions do
 #: not count)
 LAUNCHES = 0
-#: the CRC buffer route's state per (device, stream): three uint32 words,
-#: zeroed once, left zeroed by every launch
-_STATE: dict[tuple[int, int], torch.Tensor] = {}
+#: the kernels' state per (device, stream, kind): the CRC buffer route's
+#: three int32 words; Adler's three int64 words a row wider than a tile, or
+#: for a buffer; zeroed once, left zeroed by every launch, grown as needed
+_STATE: dict[tuple[int, int, int], torch.Tensor] = {}
 
 
 # -- host-built constants -----------------------------------------------------
@@ -269,7 +274,7 @@ def adler32_blocks_plain(data: torch.Tensor,
 # -- the CUDA kernel and the dispatchers --------------------------------------
 
 _CRC, _ADLER = 0, 1
-_BUFFER_ROW = 65536       # bytes a row of one buffer in the kernel
+_TILE = 65536             # bytes a tile of a row in the kernel
 
 
 def _kernel(name: str):
@@ -282,7 +287,7 @@ def _bind(lib, name: str):
         if name == "ldrsx_checksum_rows":
             fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
                            ctypes.c_int64, ctypes.c_int64] \
-                + [ctypes.c_void_p] * 3
+                + [ctypes.c_void_p] * 4
         else:
             fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
                            ctypes.c_uint32] + [ctypes.c_void_p] * 3
@@ -305,27 +310,26 @@ def _launch(name: str, *args, device, stream) -> None:
     LAUNCHES += 1
 
 
-def _state(stream) -> torch.Tensor:
-    """The zeroed state of the CRC buffer route's launches on stream."""
-    key = (stream.device.index, stream.cuda_stream)
+def _state(stream, kind: int, words: int) -> torch.Tensor:
+    """The zeroed state of kind's launches on stream, at least `words`
+    long (int32 for the CRC, int64 for Adler): a larger one replaces it
+    zeroed, and every launch leaves it zeroed."""
+    key = (stream.device.index, stream.cuda_stream, kind)
     st = _STATE.get(key)
-    if st is None:
-        st = _STATE[key] = torch.zeros(4, dtype=torch.int32,
-                                       device=stream.device)
+    if st is None or st.numel() < words:
+        st = _STATE[key] = torch.zeros(
+            words, dtype=torch.int32 if kind == _CRC else _I64,
+            device=stream.device)
     return st
 
 
 def _buffer(kind: int, data: torch.Tensor, n: int, init: int):
-    """The kernel over data[:n] (1-D uint8 on the card, n > 0) as rows
-    of _BUFFER_ROW bytes, continuing from `init`: a 0-dim int64 tensor.
-    The CRC takes its stream's state, Adler a row sum a row."""
+    """The kernel over data[:n] (1-D uint8 on the card, n > 0),
+    continuing from `init`, in one launch with its stream's state: a
+    0-dim int64 tensor."""
     data = data.contiguous()
     stream = torch.cuda.current_stream(data.device)
-    if kind == _CRC:
-        scratch = _state(stream)
-    else:
-        scratch = torch.empty(-(-n // _BUFFER_ROW), dtype=_I64,
-                              device=data.device)
+    scratch = _state(stream, kind, 4 if kind == _CRC else 3)
     out = torch.empty((), dtype=_I64, device=data.device)
     _launch("ldrsx_checksum_buffer", kind, data.data_ptr(), n,
             init & _MASK32, scratch.data_ptr(), out.data_ptr(),
@@ -337,7 +341,8 @@ def _rows(kind: int, data: torch.Tensor, lengths: torch.Tensor, chunk: int,
           name: str) -> torch.Tensor:
     """The kernel over the rows of data (B, S) uint8 on the card, each
     cut at its length: (B,) int64. A row view whose bytes are not
-    adjacent is copied; rows at any stride are read in place."""
+    adjacent is copied; rows at any stride are read in place. Adler rows
+    wider than a tile take three words a row of the stream's state."""
     _check_bytes(data, 2, name)
     b, s = data.shape
     if s % chunk:
@@ -351,9 +356,12 @@ def _rows(kind: int, data: torch.Tensor, lengths: torch.Tensor, chunk: int,
     n = lengths.to(_I64).contiguous()
     out = torch.empty(b, dtype=_I64, device=data.device)
     if b:
+        stream = torch.cuda.current_stream(data.device)
+        scratch = _state(stream, kind, 3 * b).data_ptr() \
+            if kind == _ADLER and s > _TILE else None
         _launch("ldrsx_checksum_rows", kind, data.data_ptr(), data.stride(0),
-                b, s, n.data_ptr(), out.data_ptr(), device=data.device,
-                stream=torch.cuda.current_stream(data.device))
+                b, s, n.data_ptr(), scratch, out.data_ptr(),
+                device=data.device, stream=stream)
     return out
 
 

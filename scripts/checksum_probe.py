@@ -3,13 +3,16 @@
 (ops/checksums.py over csrc/checksums.cu).
 
 Usage: python3 scripts/checksum_probe.py [--out FILE] [--versus DIR ...]
-                                         [--ablate DIR ...] [--turns N]
+                                         [--ablate DIR ...] [--ablate-adler]
+                                         [--record-versus ROOT ...]
+                                         [--turns N]
 
 Inputs: chip_smoke.py's corpus (16,936,000 bytes) as the sharded static
 tier hands it over, 259 zero-padded rows of 64 KiB with int32 lengths
 (and again with int64 lengths, which skip the wrapper's conversion, and
 with every length 65,536, which leaves no short span), and as one
-buffer. For crc32_blocks, adler32_blocks, crc32_fixed and
+buffer, and as the compress items' 17 rows of 1 MiB (the last one
+short). For crc32_blocks, adler32_blocks, crc32_fixed and
 adler32_fixed it prints
 - the call's wall time, host clock, the card synchronised around it;
 - the call's device time, CUDA events around calls enqueued behind a
@@ -22,19 +25,38 @@ call of the corpus in a fresh process (the kernels already built), the
 copy to the card included, and the CRC kernel's registers and spills
 (nvcc's -Xptxas -v report). Then the stage split of block 0 of the
 CRC blocks call (clock64() stamps, a build with -DLDRSX_STAGES): the
-table build, and a step's hashing, fold to the row and finish. With
+table build, and a step's hashing, fold to the row and finish; and of
+block 0 of the Adler calls (the 259 rows, the buffer, the 17 rows of
+1 MiB) where the source has the tile design (adler_kernel): a tile's
+loads, group sums, the block's sums, the atomics and the finish. With
 --versus, builds of the checksums.cu in each DIR (another version of
 the source: `git archive HEAD libdeflate_rsx_tpu_torch/csrc | tar -x
 -C build/parent` gives the parent's) are timed in turns with the
 default build (default, versions, versions, default, --turns times) on
-the blocks calls and the buffer calls, the CRC blocks call also with
-L2 flushed before each call, each held equal to the default; and the
-stage split is taken of each DIR's kernel too, where its source is PR
-19's (stamps put into a copy: block 0 is row 0, its start, its tables,
-its spans, its fold). --ablate DIR builds (copies of the source with a
+the blocks calls (the 259 rows; Adler also the 17 rows of 1 MiB) and
+the buffer calls, with L2 warm and again flushed before each call
+(the CRC's buffer warm only), each held equal to the default, with
+each Adler call's kernels by name (torch.profiler); and the stage
+split is taken of each DIR's kernel too, where its source has the
+CRC's block-a-row design (stamps put into a copy: block 0 is row 0,
+its start, its tables, its spans, its fold). --ablate DIR builds (copies of the source with a
 stage cut out, whose results are wrong) are timed in the same turns,
-unchecked, with their stage splits. Every line names the card. Needs
-one CUDA card.
+unchecked, with their stage splits; --ablate-adler adds copies of the
+default source without the Adler kernel's loads, without its group
+sums, without both, and without its shuffles. --record-versus ROOT
+(another checkout of the repo: `git archive HEAD | tar -x -C
+build/parent-tree` gives the parent's) times chip_smoke.py's checksums
+record, crc32_blocks and adler32_blocks on the 259 rows with int32
+lengths, as its phase 30 does (CUDA events around 5 calls enqueued by
+the host, no device sleep, so the wrappers' host time counts), through
+this tree's package and each ROOT's, each in its own process, in turns
+(tree, roots, roots reversed, tree, --turns times): the median, least
+and most of SAMPLES such timings a process; beside each, on the host
+clock, the wrapper's time a call with the card not waited on, the bare
+C entry's (the launch alone) and a yardstick (`lengths.to(int64)`, one
+PyTorch op) that shows how fast the process's host runs. Every line
+names the card.
+Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -68,6 +90,68 @@ for name, fn in (("crc32_device", ck.crc32_device),
 print(f"host tables built: {{ck._crc_byte_table.cache_info().currsize}}")
 """
 
+#: timings of the smoke's checksums record a process (--record-versus)
+SAMPLES = 40
+
+RECORD = """
+import json, sys, time
+sys.path.insert(0, {root!r})
+import numpy as np, torch
+from libdeflate_rsx_tpu_torch.ops import checksums as ck
+assert ck.__file__.startswith({root!r}), ck.__file__
+z = np.load({npz!r})
+rows = torch.from_numpy(z["rows"]).cuda()
+n32 = torch.from_numpy(z["n32"]).cuda()
+want = {{"crc32_blocks": z["crc"], "adler32_blocks": z["adler"]}}
+
+
+def time_cuda(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+entry = ck._kernel("ldrsx_checksum_rows")
+n64 = n32.to(torch.int64)
+out = torch.empty(len(n32), dtype=torch.int64, device="cuda")
+head = (rows.data_ptr(), rows.stride(0), rows.shape[0], rows.shape[1],
+        n64.data_ptr())
+tail = (out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+extra = (None,) * (len(entry.argtypes) - 8)   # the scratch pointer, if any
+fns = {{"crc32_blocks": ck.crc32_blocks, "adler32_blocks": ck.adler32_blocks}}
+for kind, (name, fn) in enumerate(fns.items()):
+    assert np.array_equal(fn(rows, n32).cpu().numpy(), want[name]), name
+    assert entry(kind, *head, *extra, *tail) == 0, name
+    assert np.array_equal(out.cpu().numpy(), want[name]), name
+got = {{name + k: [] for name in fns for k in ("", " host", " C entry")}}
+got["yardstick"] = []
+for _ in range({samples}):
+    for kind, (name, fn) in enumerate(fns.items()):
+        got[name].append(time_cuda(lambda: fn(rows, n32), 5))
+        got[name + " host"].append(host_us(lambda: fn(rows, n32), 5))
+        got[name + " C entry"].append(
+            host_us(lambda: entry(kind, *head, *extra, *tail), 5))
+    got["yardstick"].append(host_us(lambda: n32.to(torch.int64), 5))
+print(json.dumps(got))
+"""
+
 #: clock64() stamps put into a copy of PR 19's source: block 0 (row 0)
 #: at its start, after its tables, after every thread's span (a barrier
 #: added), after the fold
@@ -93,9 +177,53 @@ extern "C" int ldrsx_checksum_stages(void* host) {
 """
 
 
+#: cut-down copies of the Adler kernel (--ablate-adler): (name,
+#: [(text, replacement)]), whose results are wrong
+ADLER_LOADS = ("      v[k] = o + GROUP <= len ? load_group<ALIGNED>(p + o)\n"
+               "                              : make_uint4(0, 0, 0, 0);\n")
+ADLER_SUMS = ("      r += s1;\n      s1 = group_a(v[k], s1);\n"
+              "      w = group_w(v[k], w);\n")
+ADLER_SHUFFLES = ("#pragma unroll\n    for (int off = 16; off; off >>= 1) {\n"
+                  "      av += __shfl_xor_sync(0xFFFFFFFFu, av, off);\n"
+                  "      b += __shfl_xor_sync(0xFFFFFFFFu, b, off);\n    }\n")
+NO_LOADS = (ADLER_LOADS, "      v[k] = make_uint4(o, len, k, t);\n")
+NO_SUMS = (ADLER_SUMS, "      r ^= v[k].x;\n      s1 ^= v[k].y;\n"
+                       "      w ^= v[k].z ^ v[k].w;\n")
+ADLER_ABLATIONS = (("no-adler-loads", [NO_LOADS]),
+                   ("no-adler-sums", [NO_SUMS]),
+                   ("no-adler-loads-sums", [NO_LOADS, NO_SUMS]),
+                   ("no-adler-shuffles", [(ADLER_SHUFFLES, "")]))
+
+
 def is_new(source: str) -> bool:
     """Whether a checksums.cu has this tree's CRC design (crc_kernel)."""
     return "crc_kernel" in open(source).read()
+
+
+def adler_is_new(source: str) -> bool:
+    """Whether a checksums.cu has this tree's Adler design (adler_kernel,
+    whose rows entry takes a scratch pointer)."""
+    return "adler_kernel" in open(source).read()
+
+
+def adler_ablations(own: str) -> list[str]:
+    """Directories under build/ holding the ADLER_ABLATIONS copies of
+    the source `own`."""
+    from libdeflate_rsx_tpu_torch.ops import _build
+
+    text = open(own).read()
+    dirs = []
+    for name, cuts in ADLER_ABLATIONS:
+        cut = text
+        for old, new in cuts:
+            assert cut.count(old) == 1, (name, old)
+            cut = cut.replace(old, new)
+        d = os.path.join(os.path.dirname(_build.BUILD_DIR), name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "checksums.cu"), "w") as f:
+            f.write(cut)
+        dirs.append(d)
+    return dirs
 
 
 def variant(source: str, tag: str, stages: bool = False):
@@ -123,18 +251,35 @@ def variant(source: str, tag: str, stages: bool = False):
 
 
 class Build:
-    """One build of checksums.cu: its rows entry through the dispatchers,
-    its buffer entry with the scratch its design takes (the CRC's zeroed
-    state in this tree's design, else a row register a row)."""
+    """One build of checksums.cu: its rows entry through the dispatchers
+    (a rows entry without the scratch pointer, an older source's, bound
+    as it was), its buffer entry with the scratch its design takes (a
+    zeroed state of the build's own in this tree's designs, else a row
+    register a row)."""
 
-    def __init__(self, label: str, lib, new: bool):
+    def __init__(self, label: str, lib, new: bool, adler_new: bool = True):
         self.label, self.lib, self.new = label, lib, new
-        self.state = None
+        self.adler_new = adler_new
+        self.states = {}
+
+    def entry(self, name: str):
+        import ctypes as c
+
+        from libdeflate_rsx_tpu_torch.ops import checksums as ck
+        if self.adler_new or name != "ldrsx_checksum_rows":
+            return ck._bind(self.lib, name)
+        fn = getattr(self.lib, name)
+        fn.argtypes = [c.c_int, c.c_void_p, c.c_int64, c.c_int64,
+                       c.c_int64] + [c.c_void_p] * 3
+        fn.restype = c.c_int
+        return lambda kind, data, stride, rows, width, lengths, scratch, \
+            out, stream: fn(kind, data, stride, rows, width, lengths, out,
+                            stream)
 
     def rows(self, fn, rows, lengths):
         from libdeflate_rsx_tpu_torch.ops import checksums as ck
         default = ck._kernel
-        ck._kernel = lambda name: ck._bind(self.lib, name)
+        ck._kernel = self.entry
         try:
             return fn(rows, lengths)
         finally:
@@ -145,11 +290,13 @@ class Build:
 
         from libdeflate_rsx_tpu_torch.ops import checksums as ck
         out = torch.empty((), dtype=torch.int64, device=buf.device)
-        if self.new and kind == 0:
-            if self.state is None:
-                self.state = torch.zeros(4, dtype=torch.int32,
-                                         device=buf.device)
-            scratch = self.state
+        if (self.new and kind == 0) or (self.adler_new and kind == 1):
+            if kind not in self.states:
+                self.states[kind] = torch.zeros(
+                    4 if kind == 0 else 3,
+                    dtype=torch.int32 if kind == 0 else torch.int64,
+                    device=buf.device)
+            scratch = self.states[kind]
         rc = ck._bind(self.lib, "ldrsx_checksum_buffer")(
             kind, buf.data_ptr(), n, init, scratch.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
@@ -178,23 +325,31 @@ def cold_ms(fn, flush) -> float:
     return sum(s.elapsed_time(e) for s, e in evs) / REPS
 
 
-def stages(say, card, build: Build, rows, lengths) -> None:
-    """Block 0's stamps of one crc32_blocks call through a stages build."""
+def stamps(build: Build, fn) -> list[int]:
+    """Block 0's clock64() stamps of the second of two calls of fn
+    through a stages build (the copy clears them in this tree's source;
+    an older source leaves them, and takes the same call twice)."""
     import numpy as np
     import torch
 
+    entry = build.lib.ldrsx_checksum_stages
+    entry.argtypes, entry.restype = [ctypes.c_void_p], ctypes.c_int
+    host = np.zeros(64, np.int64)
+    fn()                                             # the build's first
+    torch.cuda.synchronize()
+    assert entry(host.ctypes.data) == 0
+    host[:] = 0
+    fn()
+    torch.cuda.synchronize()
+    assert entry(host.ctypes.data) == 0
+    return host[host != 0].tolist()
+
+
+def stages(say, card, build: Build, rows, lengths) -> None:
+    """Block 0's stamps of one crc32_blocks call through a stages build."""
     from libdeflate_rsx_tpu_torch.ops import checksums as ck
 
-    fn = build.lib.ldrsx_checksum_stages
-    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
-    host = np.zeros(64, np.int64)
-    build.rows(ck.crc32_blocks, rows, lengths)       # the build's first
-    torch.cuda.synchronize()
-    host[:] = 0
-    build.rows(ck.crc32_blocks, rows, lengths)
-    torch.cuda.synchronize()
-    assert fn(host.ctypes.data) == 0
-    t = host[host != 0].tolist()
+    t = stamps(build, lambda: build.rows(ck.crc32_blocks, rows, lengths))
     d = [b - a for a, b in zip(t, t[1:])]
     if build.new:
         names = ["tables"] + [f"step {k} {s}"
@@ -207,11 +362,33 @@ def stages(say, card, build: Build, rows, lengths) -> None:
         + ", ".join(f"{n} {c}" for n, c in zip(names, d)) + f" [{card}]")
 
 
-def versus(say, card, dirs, ablate, turns, rows, lengths, buf, n) -> None:
+ADLER_STAGES = ("loads", "group sums", "block sums", "atomics", "finish")
+
+
+def adler_stages(say, card, build: Build, calls) -> None:
+    """Block 0's stamps of each Adler call through a stages build of the
+    tile design: a tile's start, its loads' arrival, the group sums, the
+    block's sums, the atomics and the finish (a row of one tile takes no
+    atomics), then the next tile's start."""
+    for label, fn in calls:
+        t = stamps(build, lambda: fn(build))
+        per = len(ADLER_STAGES) + 1
+        parts = []
+        for k in range(0, len(t) - per + 1, per):
+            tile = t[k:k + per]
+            parts.append(f"tile {k // per}: " + ", ".join(
+                f"{n} {b - a}" for n, a, b in zip(ADLER_STAGES, tile,
+                                                  tile[1:])))
+        say(f"{build.label}: block 0 of {label}, {t[-1] - t[0]} cycles: "
+            + "; ".join(parts) + f" [{card}]")
+
+
+def versus(say, card, dirs, ablate, turns, cases) -> None:
     """Device time of each call with the default build and each DIR's,
-    in turns; the CRC blocks call also with L2 flushed before each
-    call; then the stage split of each. Builds from `ablate` are timed
-    in the same turns without the equality check."""
+    in turns, L2 warm and flushed before each call (the CRC's buffer
+    warm only); each Adler call's kernels by name; then the stage split
+    of each. Builds from `ablate` are timed in the same turns without
+    the equality check."""
     import torch
 
     from libdeflate_rsx_tpu_torch.ops import _build
@@ -219,33 +396,31 @@ def versus(say, card, dirs, ablate, turns, rows, lengths, buf, n) -> None:
     from tail_probe import device_ms
 
     own = os.path.join(_build.CSRC, "checksums.cu")
-    builds = [Build("default", variant(own, "default"), True)]
-    builds += [Build(d, variant(os.path.join(d, "checksums.cu"),
-                                f"versus{i}"),
-                     is_new(os.path.join(d, "checksums.cu")))
-               for i, d in enumerate(dirs + ablate)]
+    sources = [own] + [os.path.join(d, "checksums.cu") for d in dirs + ablate]
+    labels = ["default"] + list(dirs) + list(ablate)
+    builds = [Build(label, variant(src, f"versus{i}"), is_new(src),
+                    adler_is_new(src))
+              for i, (label, src) in enumerate(zip(labels, sources))]
     unchecked = set(ablate)
-    regs = torch.empty(-(-n // 65536), dtype=torch.int64, device="cuda")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    calls = (
-        ("crc32_blocks", lambda b: b.rows(ck.crc32_blocks, rows, lengths)),
-        ("adler32_blocks", lambda b: b.rows(ck.adler32_blocks, rows,
-                                            lengths)),
-        ("crc32 buffer", lambda b: b.buffer(0, buf, n, 0, regs)),
-        ("adler32 buffer", lambda b: b.buffer(1, buf, n, 1, regs)),
-    )
+    calls = adler_calls(cases) + (
+        ("crc32_blocks", lambda b: b.rows(ck.crc32_blocks, cases["rows"],
+                                          cases["n64"])),
+        ("crc32 buffer", lambda b: b.buffer(0, cases["buf"], cases["n"], 0,
+                                            cases["regs"])))
     want = [fn(builds[0]) for _, fn in calls]
-    times = {b.label: {name: [] for name, _ in calls + (("crc32_blocks "
-                                                         "cold", None),)}
-             for b in builds}
+    names = [name for name, _ in calls]
+    names += [f"{name} cold" for name in names if name != "crc32 buffer"]
+    times = {b.label: {name: [] for name in names} for b in builds}
     order = (builds + builds[1:][::-1] + builds[:1]) * turns
     for b in order:
         for (name, fn), w in zip(calls, want):
             assert b.label in unchecked or torch.equal(fn(b), w), \
                 (b.label, name)
             times[b.label][name].append(device_ms(lambda: fn(b)))
-        times[b.label]["crc32_blocks cold"].append(
-            cold_ms(lambda: calls[0][1](b), flush))
+            if name != "crc32 buffer":
+                times[b.label][f"{name} cold"].append(
+                    cold_ms(lambda: fn(b), flush))
     for label, by in times.items():
         say(f"{label}: " + "; ".join(
             f"{name} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
@@ -253,13 +428,93 @@ def versus(say, card, dirs, ablate, turns, rows, lengths, buf, n) -> None:
             + " on the device, in turns; "
             + ("not checked" if label in unchecked else "equal")
             + f" [{card}]")
-    for i, d in enumerate(["default"] + list(dirs) + list(ablate)):
-        src = own if i == 0 else os.path.join(d, "checksums.cu")
-        b = Build(d, variant(src, f"stages{i}", stages=True), is_new(src))
-        stages(say, card, b, rows, lengths)
+    from tail_probe import kernels_us
+    for b in builds:
+        for name, fn in calls[:3]:
+            say(f"{b.label}: {name}, kernels (torch.profiler): " + ", ".join(
+                f"{k[:40]} {us:.2f} us" for k, us in kernels_us(
+                    lambda: fn(b))) + f" [{card}]")
+    del flush
+    for i, (label, src) in enumerate(zip(labels, sources)):
+        b = Build(label, variant(src, f"stages{i}", stages=True),
+                  is_new(src), adler_is_new(src))
+        stages(say, card, b, cases["rows"], cases["n64"])
+        if b.adler_new:
+            adler_stages(say, card, b, adler_calls(cases))
 
 
-def probe(say, dirs, ablate, turns) -> int:
+def adler_calls(cases):
+    """The three Adler calls through a build: (label, fn(build))."""
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
+
+    return (("adler32_blocks", lambda b: b.rows(
+                ck.adler32_blocks, cases["rows"], cases["n64"])),
+            ("adler32 buffer", lambda b: b.buffer(
+                1, cases["buf"], cases["n"], 1, cases["regs"])),
+            ("adler32_blocks 17 x 1 MiB", lambda b: b.rows(
+                ck.adler32_blocks, cases["items"], cases["item_lens"])))
+
+
+def record_versus(say, card, roots, turns, rows, n32) -> None:
+    """The smoke's checksums record (crc32_blocks and adler32_blocks on
+    the 259 rows, int32 lengths, 5 calls between CUDA events) through
+    this tree's package and each root's, a process each, in turns; each
+    root's kernels built under its own build/, the libraries of sources
+    equal to this tree's copied there first."""
+    import json
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    from libdeflate_rsx_tpu_torch.ops import _build
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
+
+    npz = os.path.join(os.path.dirname(_build.BUILD_DIR), "record_rows.npz")
+    np.savez(npz, rows=rows.cpu().numpy(), n32=n32.cpu().numpy(),
+             crc=ck.crc32_blocks(rows, n32).cpu().numpy(),
+             adler=ck.adler32_blocks(rows, n32).cpu().numpy())
+    roots = [os.path.abspath(r) for r in roots]
+    for root in roots:
+        dest = os.path.join(root, "build", "kernels")
+        os.makedirs(dest, exist_ok=True)
+        for so in glob.glob(os.path.join(_build.BUILD_DIR, "*.so")):
+            shutil.copy(so, dest)
+    labels = [ROOT] + roots
+    times = {label: {} for label in labels}
+    for label in (labels + labels[1:][::-1] + labels[:1]) * turns:
+        out = subprocess.run(
+            [sys.executable, "-c", RECORD.format(root=label, npz=npz,
+                                                 samples=SAMPLES)],
+            capture_output=True, text=True, timeout=900)
+        assert out.returncode == 0, out.stderr[-3000:]
+        for name, ts in json.loads(out.stdout.splitlines()[-1]).items():
+            times[label].setdefault(name, []).append(ts)
+    what = {"": "ms a call over 5 calls by CUDA events, as the smoke "
+                "times it",
+            " host": "µs a call of the wrapper on the host clock, 5 calls "
+                     "enqueued",
+            " C entry": "µs a call of the bare C entry on the host clock",
+            "yardstick": "µs a call of lengths.to(int64) on the host clock"}
+    for label, by in times.items():
+        tag = "tree" if label == ROOT else label
+        for name, runs in by.items():
+            kind = next((k for k in (" host", " C entry", "yardstick")
+                         if name.endswith(k)), "")
+            say(f"record {tag}: {name} on the 259 rows (int32 lengths), "
+                f"{what[kind]}; per process in turns, median [least, most] "
+                f"of {SAMPLES}: " + "; ".join(
+                    f"{statistics.median(ts):.4f} [{min(ts):.4f}, "
+                    f"{max(ts):.4f}]" for ts in runs) + f" [{card}]")
+        pairs = [sorted(a + b for a, b in zip(*runs)) for runs in
+                 zip(by["crc32_blocks"], by["adler32_blocks"])]
+        say(f"record {tag}: the pair summed (ms), median [least, most] a "
+            f"process: " + "; ".join(
+                f"{statistics.median(p):.4f} [{p[0]:.4f}, {p[-1]:.4f}]"
+                for p in pairs) + f" [{card}]")
+
+
+def probe(say, dirs, ablate, turns, roots=()) -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
@@ -284,11 +539,19 @@ def probe(say, dirs, ablate, turns) -> int:
                        device="cuda")
     n64 = n32.long()
     full = torch.full_like(n64, cs.SLICE)
+    nitem = -(-len(data) // cs.ITEM)
+    items = np.zeros(nitem * cs.ITEM, np.uint8)
+    items[:len(data)] = np.frombuffer(data, np.uint8)
+    items = torch.from_numpy(items.reshape(nitem, cs.ITEM)).cuda()
+    item_lens = torch.tensor([min(cs.ITEM, len(data) - i * cs.ITEM)
+                              for i in range(nitem)], device="cuda")
     buf = ck._padded(data, ck.CRC_CHUNK, "cuda")
     nbytes = len(data) + 4 * nblk + 8 * nblk
-    say(f"bound of a blocks call: {nbytes / cs.HBM_BYTES_PER_MS:.6f} ms "
-        f"({nbytes} bytes at 3.35 TB/s); of a buffer call "
-        f"{(len(data) + 8) / cs.HBM_BYTES_PER_MS:.6f} ms")
+    say(f"bound of a blocks call on the {nblk} rows: "
+        f"{nbytes / cs.HBM_BYTES_PER_MS:.6f} ms ({nbytes} bytes at 3.35 "
+        f"TB/s); on the {nitem} rows of 1 MiB "
+        f"{(len(data) + 16 * nitem) / cs.HBM_BYTES_PER_MS:.6f} ms; of a "
+        f"buffer call {(len(data) + 8) / cs.HBM_BYTES_PER_MS:.6f} ms")
     calls = (
         ("crc32_blocks, 259 rows, int32 lengths",
          lambda: ck.crc32_blocks(rows, n32)),
@@ -300,6 +563,8 @@ def probe(say, dirs, ablate, turns) -> int:
          lambda: ck.adler32_blocks(rows, n32)),
         ("adler32_blocks, 259 rows, int64 lengths",
          lambda: ck.adler32_blocks(rows, n64)),
+        (f"adler32_blocks, {nitem} rows of 1 MiB, int64 lengths",
+         lambda: ck.adler32_blocks(items, item_lens)),
         ("crc32_fixed, the corpus as one buffer",
          lambda: ck.crc32_fixed(buf, len(data), 0)),
         ("adler32_fixed, the corpus as one buffer",
@@ -320,17 +585,28 @@ def probe(say, dirs, ablate, turns) -> int:
     for log in glob.glob(_build.library_path("checksums") + ".log"):
         text = open(log).read()
         for entry in text.split("Compiling entry function")[1:]:
-            if "crc_kernel" in entry.split("\n", 1)[0]:
-                say("crc_kernel<" + ("buffer" if "ILb1E" in entry
-                                     else "rows") + ">: " + " ".join(
+            head = entry.split("\n", 1)[0]
+            kernel = "crc_kernel<" + ("buffer" if "ILb1E" in head
+                                      else "rows") + ">" \
+                if "crc_kernel" in head else "adler_kernel<" + (
+                    "aligned" if "ILb1E" in head else "unaligned") + ">" \
+                if "adler_kernel" in head else None
+            if kernel:
+                say(kernel + ": " + " ".join(
                     line.replace("ptxas info    :", "").strip()
                     for line in entry.splitlines()[2:4]))
+    if roots:
+        record_versus(say, card, roots, turns, rows, n32)
+    cases = {"rows": rows, "n64": n64, "buf": buf, "n": len(data),
+             "items": items, "item_lens": item_lens,
+             "regs": torch.empty(nblk, dtype=torch.int64, device="cuda")}
     own = os.path.join(_build.CSRC, "checksums.cu")
     if dirs or ablate:
-        versus(say, card, dirs, ablate, turns, rows, n64, buf, len(data))
+        versus(say, card, dirs, ablate, turns, cases)
     else:
-        stages(say, card, Build("default", variant(own, "stages0", True),
-                                True), rows, n64)
+        b = Build("default", variant(own, "stages0", True), True)
+        stages(say, card, b, rows, n64)
+        adler_stages(say, card, b, adler_calls(cases))
     return 0
 
 
@@ -342,8 +618,15 @@ def main() -> int:
     ap.add_argument("--ablate", nargs="*", default=[],
                     help="also time the checksums.cu in these directories "
                     "(cut-down copies), without the equality check")
+    ap.add_argument("--ablate-adler", action="store_true",
+                    help="also time the ADLER_ABLATIONS copies of this "
+                    "tree's source, without the equality check")
+    ap.add_argument("--record-versus", nargs="*", default=[],
+                    help="also time chip_smoke.py's checksums record "
+                    "through the package of these checkouts, in turns")
     ap.add_argument("--turns", type=int, default=1,
-                    help="rounds of turns with --versus")
+                    help="rounds of turns with --versus and "
+                    "--record-versus")
     args = ap.parse_args()
     with contextlib.ExitStack() as stack:
         out = stack.enter_context(open(args.out, "w")) if args.out else None
@@ -353,7 +636,14 @@ def main() -> int:
             if out is not None:
                 print(msg, file=out, flush=True)
 
-        return probe(say, args.versus, args.ablate, args.turns)
+        ablate = list(args.ablate)
+        if args.ablate_adler:
+            sys.path.insert(0, ROOT)
+            from libdeflate_rsx_tpu_torch.ops import _build
+            ablate += adler_ablations(os.path.join(_build.CSRC,
+                                                   "checksums.cu"))
+        return probe(say, args.versus, ablate, args.turns,
+                     args.record_versus)
 
 
 if __name__ == "__main__":

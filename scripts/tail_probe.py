@@ -58,23 +58,32 @@ def device_ms(fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
-def kernels_us(fn) -> list[tuple[str, float]]:
-    """(name, device µs per call) of every device record over REPS calls."""
+def kernels_us(fn, tries: int = 3) -> list[tuple[str, float]]:
+    """(name, device µs per call) of every device record over REPS calls:
+    the mean of the launches recorded, times the launches a call
+    (rounded, at least 1), so that launches the profiler drops do not
+    lower it; profiled again, up to `tries` times, when a run records no
+    device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / REPS)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-            and e.self_device_time_total > 0]
+    rows = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / e.count
+                 * max(1, round(e.count / REPS)))
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation and e.self_device_time_total > 0]
+        if rows:
+            break
     return sorted(rows, key=lambda r: -r[1])
 
 

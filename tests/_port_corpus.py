@@ -1242,13 +1242,17 @@ def v2_collision_traps(s: int, rng, add, background) -> None:
 
 # -- the device checksums' trap rows and buffers ------------------------------
 
-CHECKSUM_THREADS = 256      # threads a row of csrc/checksums.cu's Adler-32
+CHECKSUM_THREADS = 256      # threads a block of csrc/checksums.cu's Adler-32:
+                            # thread t takes a tile's 16-byte groups
+                            # t + 256 k
+CHECKSUM_GROUP = 16         # bytes an Adler group (one dp4a pair a word)
+CHECKSUM_NMAX = 5552        # zlib's NMAX: bytes between its mod steps
 CHECKSUM_SPAN = 64          # bytes a thread's span of its CRC-32
-CHECKSUM_TILE = 65536       # bytes a CRC-32 step (1,024 spans): a wide
-                            # row's tile
+CHECKSUM_TILE = 65536       # bytes a CRC-32 step (1,024 spans) and an
+                            # Adler-32 tile: a wide row's tile
 CHECKSUM_BUFFER_ROW = 65536     # bytes a row of one buffer in that kernel
-#: row widths: 4 bytes an Adler thread, an odd count of 1,024-byte chunks,
-#: the main path's 64 KiB blocks
+#: row widths: 64 Adler groups, an odd count of 1,024-byte chunks, the main
+#: path's 64 KiB blocks
 CHECKSUM_WIDTHS = (1024, 5120, 65536)
 #: initial values of the buffer traps: 0, 1, and five Adler values whose
 #: halves are at or past the modulus 65,521
@@ -1256,15 +1260,34 @@ CHECKSUM_INITS = (0, 1, 0xFFFFFFFF, 0xFFF1FFF1, 0xFFF0FFF0, 0x0000FFFF,
                   0xFFFF0000)
 
 
+def adler_trap_groups(s: int) -> list[int]:
+    """The Adler groups whose edges the trap lengths reach at width s:
+    one group of each thread of the tile's (every group where the tile
+    has a slot a thread), in the slot (t mod slots) so that every slot
+    is reached as well; a thread with no group there takes its first."""
+    groups = -(-min(s, CHECKSUM_TILE) // CHECKSUM_GROUP)
+    slots = -(-groups // CHECKSUM_THREADS)
+    out = []
+    for t in range(min(groups, CHECKSUM_THREADS)):
+        g = t + CHECKSUM_THREADS * (t % slots)
+        out.append(g if g < groups else t)
+    return out
+
+
 def checksum_lengths(s: int) -> list[int]:
     """Row lengths that reach the kernel's edges at width s: 0, 1, 7, 8,
-    15, 16 (the head and tail bytes around a 16-byte load), every
-    Adler thread's span boundary and every CRC span's (each 64 bytes)
-    and one byte either side, s - 1 and s."""
-    span = -(-s // CHECKSUM_THREADS)
+    15, 16 (the bytes around a 16-byte load), the start of one Adler
+    group of every thread (adler_trap_groups) and of every CRC span
+    (each 64 bytes) and one byte either side (a group the length cuts
+    by one byte, or one byte short of the group before it), zlib's NMAX
+    (5,552) and its multiples and one byte either side, s - 1 and s."""
     out = {0, 1, 7, 8, 15, 16, s - 1, s}
-    for k in range(1, CHECKSUM_THREADS):
-        out |= {k * span - 1, k * span, k * span + 1}
+    for g in adler_trap_groups(s):
+        e = g * CHECKSUM_GROUP
+        out |= {e - 1, e, e + 1}
+    for k in range(1, s // CHECKSUM_NMAX + 1):
+        e = k * CHECKSUM_NMAX
+        out |= {e - 1, e, e + 1}
     for k in range(1, -(-s // CHECKSUM_SPAN)):
         out |= {k * CHECKSUM_SPAN - 1, k * CHECKSUM_SPAN,
                 k * CHECKSUM_SPAN + 1}
@@ -1314,13 +1337,44 @@ def checksum_rows(s: int, seed: int = 31):
 
 
 def checksum_buffers(seed: int = 37) -> list[bytes]:
-    """Buffers for the one-buffer path (rows of 64 KiB, the last one
-    short): 1 MiB + 3 random bytes, 1, 16 and 1,023 bytes, one row
-    exactly and a byte either side, three rows and 1,000 bytes of text,
-    and 70,000 bytes of 0xFF."""
+    """Buffers for the one-buffer path (tiles of 64 KiB, the last one
+    short): 1 MiB + 3 random bytes, 1, 16 and 1,023 bytes, one tile
+    exactly and a byte either side, three tiles and 1,000 bytes of text,
+    zlib's NMAX (5,552) and one byte either side, 12 NMAX + 1 (past a
+    tile), and last 70,000 bytes of 0xFF."""
     r = random.Random(seed)
-    row = CHECKSUM_BUFFER_ROW
+    row, nmax = CHECKSUM_BUFFER_ROW, CHECKSUM_NMAX
     return [r.randbytes((1 << 20) + 3), r.randbytes(1), r.randbytes(16),
             r.randbytes(1023), r.randbytes(row - 1), r.randbytes(row),
             r.randbytes(row + 1), make_corpus("text", 3 * row + 1000, seed),
-            b"\xff" * 70000]
+            r.randbytes(nmax - 1), r.randbytes(nmax), r.randbytes(nmax + 1),
+            r.randbytes(12 * nmax + 1), b"\xff" * 70000]
+
+
+def checksum_ff_rows():
+    """(rows (6, 3 tiles) uint8, lengths (6,) int64, numpy): rows of
+    0xFF, the Adler kernel's worst case for its 32-bit sums, one, two
+    and three tiles long and one byte short of each; zero past the
+    length."""
+    import numpy as np
+
+    t = CHECKSUM_TILE
+    lens = np.array([t, 2 * t, 3 * t, t - 1, 2 * t - 1, 3 * t - 1], np.int64)
+    rows = np.zeros((len(lens), 3 * t), np.uint8)
+    for i, n in enumerate(lens):
+        rows[i, :n] = 0xFF
+    return rows, lens
+
+
+def checksum_odd_stride(s: int = 5120, seed: int = 47):
+    """(store (B, s + 1) uint8, lengths (B,) int64, numpy): rows to read
+    as the view store[:, :s], whose stride s + 1 is odd, so that each row
+    starts at another offset mod 16 (the kernel's single-byte loads):
+    the lengths of checksum_lengths(s) thinned to every third, random
+    bytes up to each, other random bytes past it (not to be read)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = np.array(checksum_lengths(s)[::3], np.int64)
+    store = rng.integers(0, 256, (len(lens), s + 1), dtype=np.uint8)
+    return store, lens

@@ -16,9 +16,14 @@ on the trap rows and buffers of tests/_port_corpus.py:
   register and its shift applied at the end with the initial value's
   term; the multiplication by 16 integer products of masked operands
   and the tables' shift by 4 zero bytes;
-- Adler-32: 256 threads a row, each over a contiguous span with the
-  running sums and their mod steps, the spans folded in shuffle order,
-  one buffer as rows of 64 KiB folded by a 256-thread block.
+- Adler-32: tiles of 64 KiB of a row, cut at its length; thread t's
+  16-byte groups t + 256 k summed by dp4a (the byte sum and the sum
+  weighted 16 .. 1, r += s1 before each group) in 32 bits with one
+  reduction, checked against the worst case; the group the length cuts
+  from single bytes; each thread's part weighted to the tile's full end,
+  the block's parts only added; a row of one tile ended in its block, a
+  longer row's tile terms added by atomics in any order and ended by the
+  last; one buffer as one row from its initial value.
 Tolerance: exact equality."""
 
 import os
@@ -31,11 +36,13 @@ import numpy as np
 import pytest
 import torch
 
-from _port_corpus import (CHECKSUM_BUFFER_ROW, CHECKSUM_INITS,
-                          CHECKSUM_SPAN, CHECKSUM_THREADS, CHECKSUM_TILE,
-                          CHECKSUM_WIDE, CHECKSUM_WIDTHS, checksum_buffers,
-                          checksum_lengths, checksum_rows,
-                          checksum_wide_rows)
+from _port_corpus import (CHECKSUM_BUFFER_ROW, CHECKSUM_GROUP,
+                          CHECKSUM_INITS, CHECKSUM_NMAX, CHECKSUM_SPAN,
+                          CHECKSUM_THREADS, CHECKSUM_TILE, CHECKSUM_WIDE,
+                          CHECKSUM_WIDTHS, adler_trap_groups,
+                          checksum_buffers, checksum_ff_rows,
+                          checksum_lengths, checksum_odd_stride,
+                          checksum_rows, checksum_wide_rows)
 from libdeflate_rsx_tpu.ops import checksums as jck
 from libdeflate_rsx_tpu_torch.ops import adler32_device, crc32_device
 from libdeflate_rsx_tpu_torch.ops import checksums as pck
@@ -142,9 +149,6 @@ POLY = 0xEDB88320
 MOD = 65521
 ONE = np.uint32(0x80000000)     # x^0, reflected
 F32 = np.uint32(0xFFFFFFFF)
-FOLD_THREADS = 256          # threads of the Adler one-block fold
-ADLER_GROUPS = 256          # 16-byte groups between the Adler mod steps
-BATCH = 8                   # 16-byte loads an Adler thread issues together
 CRC_THREADS = 1024          # threads a CRC block: spans a tile
 HALF = 16                   # a row's CRC threads come in these
 KERNEL = os.path.join(os.path.dirname(pck.__file__), os.pardir, "csrc",
@@ -349,131 +353,157 @@ def model_crc_buffer(data: bytes, init: int) -> int:
     return model_crc_buffer_end(crc_tile(rows, lens, False), n, init)
 
 
-def adler_span_parts(rows, lens):
-    """Each Adler thread's (s1, s2, len) over rows (R, s) uint8 cut at
-    lens (R,): head bytes to a 16-byte boundary (rows start aligned),
-    batches of BATCH 16-byte groups, single groups, tail bytes; the sums
-    reduced once ADLER_GROUPS groups are in, checked to stay below
-    2^32."""
-    r_n, s = rows.shape
-    span = -(-s // CHECKSUM_THREADS)
-    b0 = np.arange(CHECKSUM_THREADS, dtype=np.int64) * span
-    ln = np.asarray(lens, np.int64)[:, None]
-    begin, end = np.minimum(b0, ln), np.minimum(b0 + span, ln)
-    i = begin.copy()
-    rr = np.arange(r_n)[:, None]
-    s1 = np.zeros(begin.shape, np.int64)
-    s2 = np.zeros(begin.shape, np.int64)
-    groups = np.zeros(begin.shape, np.int64)
-
-    def byte_step(m):
-        nonlocal s1, s2
-        d = rows[rr, np.minimum(i, s - 1)].astype(np.int64)
-        s1 = np.where(m, s1 + d, s1)
-        s2 = np.where(m, s2 + s1, s2)
-
-    def groups_step(m, count):
-        nonlocal s1, s2, i
-        for _ in range(count):
-            d = rows[rr[..., None], np.minimum(i[..., None] + np.arange(16),
-                                               s - 1)]
-            for k in range(16):
-                s1 = np.where(m, s1 + d[..., k], s1)
-                s2 = np.where(m, s2 + s1, s2)
-            assert s2.max(initial=0) < 1 << 32
-            i += 16 * m
-        groups[:] += count * m
-        wrap = groups >= ADLER_GROUPS
-        s1, s2 = np.where(wrap, s1 % MOD, s1), np.where(wrap, s2 % MOD, s2)
-        groups[wrap] = 0
-
-    while ((m := (i < end) & (i % 16 != 0))).any():
-        byte_step(m)
-        i += m
-    while ((m := i + 16 * BATCH <= end)).any():
-        groups_step(m, BATCH)
-    while ((m := i + 16 <= end)).any():
-        groups_step(m, 1)
-    while ((m := i < end)).any():
-        byte_step(m)
-        i += m
-    assert s2.max(initial=0) < 1 << 32
-    return s1 % MOD, s2 % MOD, np.maximum(end - begin, 0)
+ADLER_WORDS = (0x01010101,) * 4                          # s1's dp4a weights
+WEIGHT_WORDS = (0x0D0E0F10, 0x090A0B0C, 0x05060708, 0x01020304)  # 16 .. 1
+STRIDE = CHECKSUM_GROUP * CHECKSUM_THREADS   # bytes from a slot to the next
+SLOTS = CHECKSUM_TILE // STRIDE              # groups a thread a tile
+U32 = 1 << 32
+#: a thread's worst case (every byte 0xFF) before its one reduction: s1,
+#: and b = w + E s1 + STRIDE r + the cut group's term
+A_MAX = SLOTS * CHECKSUM_GROUP * 255
+B_MAX = (SLOTS * 136 * 255 + CHECKSUM_GROUP * CHECKSUM_THREADS * A_MAX
+         + STRIDE * CHECKSUM_GROUP * 255 * SLOTS * (SLOTS - 1) // 2
+         + (CHECKSUM_GROUP - 1) * 255 * CHECKSUM_TILE + 135 * 255)
 
 
-def adler_combine(x, y):
-    """The Adler fold step on (s1, s2, len) parts, mod 65,521."""
-    (xa, xb, xl), (ya, yb, yl) = x, y
-    return (xa + ya) % MOD, (xb + yb + (yl % MOD) * xa) % MOD, xl + yl
+def dp4a(a, b, c):
+    """__dp4a(unsigned, unsigned, unsigned), elementwise: c plus the
+    products of a's and b's bytes; checked not to wrap."""
+    out = np.asarray(c, np.uint64).copy()
+    for i in range(4):
+        out = out + ((np.asarray(a, np.uint64) >> np.uint64(8 * i)) & 255) \
+            * ((np.uint64(b) >> np.uint64(8 * i)) & 255)
+    assert out.max(initial=0) < U32
+    return out.astype(np.uint32)
 
 
-def warp_fold(parts):
-    """__shfl_down_sync order over the last axis (32 lanes): lane 0's
-    result."""
-    lane = np.arange(32)
-    for off in (1, 2, 4, 8, 16):
-        src = np.where(lane + off < 32, lane + off, lane)
-        q = tuple(x[..., src] for x in parts)
-        c = adler_combine(parts, q)
-        take = (lane % (2 * off)) == 0
-        parts = tuple(np.where(take, cc, x) for cc, x in zip(c, parts))
-    return tuple(x[..., 0] for x in parts)
+def group_sums(words, s1, w):
+    """One group (..., 4) uint32 words: s1 + its byte sum and w + its sum
+    weighted 16 .. 1, four dp4a each."""
+    for k in range(4):
+        s1 = dp4a(words[..., k], ADLER_WORDS[k], s1)
+        w = dp4a(words[..., k], WEIGHT_WORDS[k], w)
+    return s1, w
 
 
-def block_fold(parts):
-    """The block's fold over the last axis (its threads): each warp,
-    then warp 0 over the warps' results, lanes past them empty."""
-    t = parts[0].shape[-1]
-    w = tuple(x.reshape(*x.shape[:-1], t // 32, 32) for x in parts)
-    w = warp_fold(w)
-    pad = [(0, 0)] * (w[0].ndim - 1) + [(0, 32 - t // 32)]
-    return warp_fold(tuple(np.pad(x, pad) for x in w))
+def adler_tile_parts(tiles, lens):
+    """Each thread's (a, b) over tiles (M, CHECKSUM_TILE) uint8 cut at lens
+    (M,): thread t's groups t + 256 k whole inside the length (16-byte
+    loads), r += s1 before each, the group the length cuts summed by its
+    owner from single bytes; b = w + E s1 + STRIDE r + the cut group's
+    term, with E the bytes after its last slot, checked below 2^32 and
+    reduced once. Bytes past the length are not read."""
+    m_n = len(tiles)
+    lens = np.asarray(lens, np.int64)
+    t = np.arange(CHECKSUM_THREADS)
+    at = np.arange(m_n)[:, None]
+    words = np.ascontiguousarray(tiles).view("<u4").reshape(
+        m_n, SLOTS, CHECKSUM_THREADS, 4)
+    s1 = np.zeros((m_n, CHECKSUM_THREADS), np.uint32)
+    r = np.zeros_like(s1)
+    w = np.zeros_like(s1)
+    for k in range(SLOTS):
+        whole = CHECKSUM_GROUP * (t + CHECKSUM_THREADS * k) \
+            + CHECKSUM_GROUP <= lens[:, None]
+        r = (r.astype(np.uint64) + s1).astype(np.uint32)
+        s1, w = group_sums(np.where(whole[..., None], words[:, k], 0), s1, w)
+    cut = lens & ~(CHECKSUM_GROUP - 1)
+    m = lens & (CHECKSUM_GROUP - 1)
+    owner = (cut // CHECKSUM_GROUP) % CHECKSUM_THREADS
+    idx = np.minimum(cut[:, None] + np.arange(CHECKSUM_GROUP),
+                     CHECKSUM_TILE - 1)
+    cut_bytes = np.where(np.arange(CHECKSUM_GROUP) < m[:, None],
+                         tiles[at, idx], 0).astype(np.uint8)
+    cw = np.ascontiguousarray(cut_bytes).view("<u4")
+    has = (m[:, None] > 0) & (t == owner[:, None])
+    ac, wc = group_sums(np.where(has[..., None], cw[:, None, :], 0), 0, 0)
+    e = (CHECKSUM_GROUP * (CHECKSUM_THREADS - 1 - t)).astype(np.uint64)
+    after_cut = (CHECKSUM_TILE - CHECKSUM_GROUP - cut).astype(np.uint64)
+    b = (w.astype(np.uint64) + e * s1 + np.uint64(STRIDE) * r + wc
+         + ac.astype(np.uint64) * after_cut[:, None])
+    assert b.max(initial=0) < U32 and b.max(initial=0) <= B_MAX
+    a = s1.astype(np.uint64) + ac
+    assert a.max(initial=0) < MOD
+    return a, b % MOD
 
 
-def model_adler_rows(rows, lens, raw=False):
-    """The Adler row kernel: each row's Adler-32, or with raw its
-    (s2 << 16 | s1) from zero; int64 (R,)."""
-    lens = np.clip(np.asarray(lens, np.int64), 0, rows.shape[1])
-    a, b, _ = block_fold(adler_span_parts(rows, lens))
-    if raw:
-        return b << 16 | a
-    return ((b + lens % MOD) % MOD) << 16 | (1 + a) % MOD
+def adler_tile_terms(tiles, lens, n, start):
+    """Each tile's term for its row: the block's sums (shuffles and shared
+    memory, 32-bit) of its threads' parts, A, and B moved past the bytes
+    after the tile's full end, f = (n - start - CHECKSUM_TILE) mod
+    65,521: (A, (B + A f) mod 65,521), each checked below 2^32."""
+    a, b = adler_tile_parts(tiles, lens)
+    big_a, big_b = a.sum(-1), b.sum(-1)
+    assert max(big_a.max(initial=0), big_b.max(initial=0)) < U32
+    big_a, big_b = big_a % MOD, big_b % MOD
+    f = (((np.asarray(n, np.int64) - start) % MOD + MOD
+          - CHECKSUM_TILE % MOD) % MOD).astype(np.uint64)
+    assert (big_b + big_a * f).max(initial=0) < U32
+    return big_a, (big_b + big_a * f) % MOD
 
 
-def model_adler_fold(regs, total, init):
-    """The Adler one-block fold of one buffer's raw row sums (rows of
-    CHECKSUM_BUFFER_ROW bytes, the last one short), then the initial
-    value."""
-    regs = np.asarray(regs, np.int64)
-    r_n, row = len(regs), CHECKSUM_BUFFER_ROW
-    per = -(-r_n // FOLD_THREADS)
-    r0 = np.arange(FOLD_THREADS) * per
-    r1 = np.minimum(r0 + per, r_n)
-    acc = tuple(np.zeros(FOLD_THREADS, np.int64) for _ in range(3))
-    for j in range(per):
-        r = r0 + j
-        ok = r < r1
-        v = regs[np.minimum(r, r_n - 1)]
-        q = (v & 0xFFFF, v >> 16, np.minimum(total - r * row, row))
-        c = q if j == 0 else adler_combine(acc, q)
-        acc = tuple(np.where(ok, cc, x) for cc, x in zip(c, acc))
-    a, b, _ = block_fold(acc)
-    init &= 0xFFFFFFFF
+def adler_finish(n, big_a, big_b, init):
+    """The row's Adler-32 from its sums and the initial value."""
     s1_in, s2_in = init & 0xFFFF, init >> 16
-    return int((s2_in + (total % MOD) * s1_in + int(b)) % MOD) << 16 \
-        | (s1_in + int(a)) % MOD
+    return ((s2_in + (n % MOD) * s1_in + big_b) % MOD) << 16 \
+        | (s1_in + big_a) % MOD
 
 
-def model_adler_buffer(data: bytes, init: int) -> int:
-    """The Adler one-buffer route: rows of CHECKSUM_BUFFER_ROW bytes,
-    then the fold. The kernel route returns init for an empty buffer."""
-    n, row = len(data), CHECKSUM_BUFFER_ROW
-    if n == 0:
+def model_adler_rows(rows, lens, init=1, seed=0, chunk=256):
+    """The Adler kernel on rows (R, s) uint8 cut at lens: each row's
+    Adler-32 from `init` (int64 (R,)). A row's tiles are those below
+    max(1, ceil(n / CHECKSUM_TILE)); a row of one tile ends in its block,
+    a longer row's tiles add their terms in a seeded order (the blocks',
+    any) into two 64-bit words and a counter, the last to finish ending
+    it."""
+    r_n, s = rows.shape
+    lens = np.clip(np.asarray(lens, np.int64), 0, s)
+    per_row = max(1, -(-s // CHECKSUM_TILE))
+    wide = per_row * CHECKSUM_TILE
+    n_tiles = np.maximum(1, -(-lens // CHECKSUM_TILE))
+    terms = {}
+    for c in range(per_row):
+        live = np.flatnonzero(c < n_tiles)
+        for k in range(0, len(live), chunk):
+            at = live[k:k + chunk]
+            tiles = np.zeros((len(at), CHECKSUM_TILE), np.uint8)
+            part = rows[at, c * CHECKSUM_TILE:(c + 1) * CHECKSUM_TILE]
+            tiles[:, :part.shape[1]] = part
+            start = c * CHECKSUM_TILE
+            big_a, big_b = adler_tile_terms(
+                tiles, np.clip(lens[at] - start, 0, CHECKSUM_TILE),
+                lens[at], start)
+            for i, row in enumerate(at):
+                terms[int(row), c] = (int(big_a[i]), int(big_b[i]))
+    out = np.zeros(r_n, np.int64)
+    acc = {}
+    order = list(terms)
+    np.random.default_rng(seed).shuffle(order)
+    for row, c in order:
+        n, (big_a, big_b) = int(lens[row]), terms[row, c]
+        if n <= CHECKSUM_TILE:
+            out[row] = adler_finish(n, big_a, big_b, init)
+            continue
+        sa, sb, done = acc.get(row, (0, 0, 0))
+        sa, sb, done = sa + big_a, sb + big_b, done + 1
+        assert sa < 1 << 64 and sb < 1 << 64
+        acc[row] = (sa, sb, done)
+        if done == n_tiles[row]:
+            acc.pop(row)
+            out[row] = adler_finish(n, sa % MOD, sb % MOD, init)
+    assert not acc
+    return out
+
+
+def model_adler_buffer(data: bytes, init: int, seed=0) -> int:
+    """The Adler one-buffer route: one row of the buffer's length, from
+    `init`, in the same kernel. The route returns init for an empty
+    buffer without a launch."""
+    if not data:
         return init & 0xFFFFFFFF
-    rows = np.zeros((-(-n // row), row), np.uint8)
-    rows.reshape(-1)[:n] = np.frombuffer(data, np.uint8)
-    lens = np.minimum(n - np.arange(len(rows)) * row, row)
-    return model_adler_fold(model_adler_rows(rows, lens, raw=True), n, init)
+    row = np.frombuffer(data, np.uint8)[None]
+    return int(model_adler_rows(row, [len(data)], init & 0xFFFFFFFF,
+                                seed)[0])
 
 
 def _plain_rows(fn, rows, lens, chunk=64):
@@ -501,6 +531,15 @@ def test_model_constants_match_the_kernel():
         return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
     assert (const("CRC_THREADS"), const("SPAN"), const("HALF")) == \
         (CRC_THREADS, CHECKSUM_SPAN, HALF)
+    assert (const("ADLER_THREADS"), const("GROUP"),
+            const("ADLER_TILE")) == (CHECKSUM_THREADS, CHECKSUM_GROUP,
+                                     CHECKSUM_TILE)
+    words = dict(re.findall(r"(W\d|ONES) = (0x[0-9A-F]+)u", src))
+    assert [int(words[f"W{k}"], 16) for k in range(4)] == list(WEIGHT_WORDS)
+    assert int(words["ONES"], 16) == ADLER_WORDS[0]
+    for k, word in enumerate(WEIGHT_WORDS):
+        assert [(word >> 8 * i) & 255 for i in range(4)] == \
+            [16 - 4 * k - i for i in range(4)]
     assert CRC_THREADS * CHECKSUM_SPAN == CHECKSUM_TILE
     asserted = {m[0]: int(m[1], 16) for m in re.findall(
         r"static_assert\(OPS_HOST\.(\w+\[[\w /]+\]) == 0x([0-9a-f]+)u", src)}
@@ -601,9 +640,10 @@ def test_crc_layout():
 
 @pytest.mark.parametrize("width", CHECKSUM_WIDTHS)
 def test_model_rows_equal_zlib_and_plain(width):
-    """Every CRC span and Adler span boundary +-1, the head and tail
-    lengths, s - 1 and s, all-0x00 and all-0xFF rows: the models, zlib
-    and the plain versions (int32 and int64 lengths) agree."""
+    """Every CRC span edge and one Adler group edge of every thread +-1,
+    zlib's NMAX and its multiples +-1, the bytes around a 16-byte load, s
+    - 1 and s, all-0x00 and all-0xFF rows: the models, zlib and the
+    plain versions (int32 and int64 lengths) agree."""
     rows, lens = checksum_rows(width)
     want_c = [zlib.crc32(r[:n].tobytes()) for r, n in zip(rows, lens)]
     want_a = [zlib.adler32(r[:n].tobytes()) for r, n in zip(rows, lens)]
@@ -617,13 +657,16 @@ def test_model_rows_equal_zlib_and_plain(width):
 
 
 def test_model_rows_wider_than_a_tile():
-    """Rows of four tiles and a chunk: the register carried from tile to
-    tile at every tile edge +-1 and +-a span; the model, zlib and the
+    """Rows of four tiles and a chunk: the CRC register carried from tile
+    to tile, Adler's tile terms added into the row's words in two seeded
+    orders, at every tile edge +-1 and +-a span; the models, zlib and the
     plain versions agree."""
     rows, lens = checksum_wide_rows()
     want_c = [zlib.crc32(r[:n].tobytes()) for r, n in zip(rows, lens)]
     want_a = [zlib.adler32(r[:n].tobytes()) for r, n in zip(rows, lens)]
     assert model_crc_rows(rows, lens).tolist() == want_c
+    for seed in (0, 1):
+        assert model_adler_rows(rows, lens, seed=seed).tolist() == want_a
     assert _plain_rows(pck.crc32_blocks_plain, rows, lens).tolist() \
         == want_c
     assert _plain_rows(pck.adler32_blocks_plain, rows, lens).tolist() \
@@ -649,64 +692,140 @@ def test_plain_rows_equal_jax_on_traps(width):
 
 @pytest.mark.parametrize("index", range(len(checksum_buffers())))
 def test_model_buffer_equals_zlib_and_plain(index):
-    """The one-buffer route (rows of 64 KiB, the last one short; the CRC
-    in one launch, Adler's rows then the one-block fold) at every
-    initial value: the models, zlib and the plain versions agree."""
+    """The one-buffer route (tiles of 64 KiB, the last one short, in one
+    launch) at every initial value: the models, zlib and the plain
+    versions agree."""
     data = checksum_buffers()[index]
     for init in CHECKSUM_INITS:
         crc, adler = zlib.crc32(data, init), zlib.adler32(data, init)
         assert model_crc_buffer(data, init) == crc, hex(init)
         assert model_adler_buffer(data, init) == adler, hex(init)
+        assert model_adler_buffer(data, init, seed=1) == adler
         t = pck._padded(data, pck.CRC_CHUNK, "cpu")
         assert int(pck.crc32_fixed_plain(t, len(data), init)) == crc
         assert int(pck.adler32_fixed_plain(t, len(data), init)) == adler
 
 
 def test_model_fold_of_many_rows():
-    """1,030 rows of 64 KiB (row shifts past the low table, 256 and
-    up): the CRC route's end and Adler's fold
-    (whose threads take five rows each, the last busy one fewer, and the
-    threads after it none) on row registers from zlib (the zero-init CRC
-    register, Adler from 0)."""
+    """1,030 rows of 64 KiB (row shifts past the low table, 256 and up):
+    the CRC route's end on row registers from zlib (the zero-init
+    register); Adler's end of one buffer of 1,030 tiles (the two words
+    and the counter), each tile's term from zlib's
+    zero-start sums of its bytes (A, and B moved to the buffer's end),
+    added in four seeded orders, the last tile ending it."""
     rng = np.random.default_rng(41)
     row = CHECKSUM_BUFFER_ROW
     data = rng.integers(0, 256, 1029 * row + 77, dtype=np.uint8).tobytes()
     pieces = [data[k:k + row] for k in range(0, len(data), row)]
     assert len(pieces) == 1030
     crc_regs = [zlib.crc32(p, 0xFFFFFFFF) ^ 0xFFFFFFFF for p in pieces]
-    adler_regs = [zlib.adler32(p, 0) for p in pieces]
+    n = len(data)
+    terms = []
+    for k, p in enumerate(pieces):
+        v = zlib.adler32(p, 0)
+        big_a, big_b = v & 0xFFFF, v >> 16
+        terms.append((big_a, (big_b + big_a * (n - k * row - len(p))) % MOD))
     for init in (0, 0xFFFF0000):
         assert model_crc_buffer_end(crc_regs, len(data), init) == \
             zlib.crc32(data, init)
-        assert model_adler_fold(adler_regs, len(data), init) == \
-            zlib.adler32(data, init)
+        for seed in range(4):
+            order = np.random.default_rng(seed).permutation(len(terms))
+            sa = sb = done = 0
+            for k in order:
+                sa, sb, done = sa + terms[k][0], sb + terms[k][1], done + 1
+                assert sa < 1 << 64 and sb < 1 << 64
+            assert done == -(-n // CHECKSUM_TILE) == 1030
+            assert adler_finish(n, sa % MOD, sb % MOD, init) == \
+                zlib.adler32(data, init)
 
 
-def test_model_adler_mod_steps_keep_32_bits():
-    """A 2 MiB row of 0xFF (8,192 bytes an Adler thread): the mod steps
-    every 4,096 bytes keep the 32-bit sums from wrapping (the model
-    asserts it), and the result is zlib's; the CRC's 32 tiles carry the
-    register to zlib's."""
-    width = 2 << 20
-    rows = np.full((1, width), 0xFF, np.uint8)
-    for n in (width, width - 1):
-        assert model_adler_rows(rows, [n]).tolist() == \
-            [zlib.adler32(rows[0, :n].tobytes())]
-        assert model_crc_rows(rows, [n]).tolist() == \
-            [zlib.crc32(rows[0, :n].tobytes())]
+@pytest.mark.parametrize("tiles", [1, 2, 3, 32])
+def test_model_adler_mod_steps_keep_32_bits(tiles):
+    """All-0xFF rows (checksum_ff_rows) of one, two and three tiles, and
+    a 2 MiB row of 0xFF (32 tiles), each also one byte short: a thread's
+    32-bit sums stay below the stated bound B_MAX < 2^32 with one
+    reduction (the model asserts it, and the worst thread reaches within
+    a cut group's term of it), the row's 64-bit words do not wrap, and
+    the results are zlib's; the CRC's tiles carry the register to
+    zlib's."""
+    assert A_MAX < MOD and B_MAX < U32
+    if tiles == 32:
+        rows = np.full((2, tiles * CHECKSUM_TILE), 0xFF, np.uint8)
+        lens = np.array([rows.shape[1], rows.shape[1] - 1], np.int64)
+        rows[1, -1] = 0
+    else:
+        rows, lens = checksum_ff_rows()
+        pick = (lens + CHECKSUM_TILE - 1) // CHECKSUM_TILE == tiles
+        rows, lens = rows[pick], lens[pick]
+    want = [zlib.adler32(r[:n].tobytes()) for r, n in zip(rows, lens)]
+    assert model_adler_rows(rows, lens).tolist() == want
+    assert model_crc_rows(rows, lens).tolist() == \
+        [zlib.crc32(r[:n].tobytes()) for r, n in zip(rows, lens)]
+    a, b = adler_tile_parts(np.full((1, CHECKSUM_TILE), 0xFF, np.uint8),
+                            [CHECKSUM_TILE])
+    cut_term = (CHECKSUM_GROUP - 1) * 255 * CHECKSUM_TILE + 135 * 255
+    worst = (SLOTS * 136 * 255 + CHECKSUM_GROUP * (CHECKSUM_THREADS - 1)
+             * A_MAX + STRIDE * CHECKSUM_GROUP * 255 * SLOTS * (SLOTS - 1)
+             // 2)
+    assert worst <= B_MAX - cut_term and int(a.max()) == A_MAX
 
 
 def test_trap_lengths_reach_every_span_edge():
-    """checksum_lengths holds each Adler thread's and each CRC span's
-    first and last byte, and one byte past it, at every width."""
+    """checksum_lengths holds, at every width, one byte either side of
+    the start of one Adler group of every thread, each of a tile's 16
+    slots reached (at 64 KiB, 16 times), zlib's NMAX and its multiples,
+    and each CRC span's first and last byte and one byte past it."""
     for width in CHECKSUM_WIDTHS:
         lens = set(checksum_lengths(width))
-        span = width // CHECKSUM_THREADS
-        assert all({k * span - 1, k * span, k * span + 1} <= lens
-                   for k in range(1, CHECKSUM_THREADS))
+        groups = adler_trap_groups(width)
+        tile_groups = -(-min(width, CHECKSUM_TILE) // CHECKSUM_GROUP)
+        assert sorted(g % CHECKSUM_THREADS for g in groups) == \
+            list(range(min(tile_groups, CHECKSUM_THREADS)))
+        assert all({16 * g - 1, 16 * g, 16 * g + 1} - {-1} <= lens
+                   for g in groups)
+        slots = {g // CHECKSUM_THREADS for g in groups}
+        assert slots == set(range(-(-tile_groups // CHECKSUM_THREADS)))
+        nmax = range(CHECKSUM_NMAX, width + 1, CHECKSUM_NMAX)
+        assert all({e - 1, e, e + 1} - {width + 1} <= lens for e in nmax)
         edges = range(CHECKSUM_SPAN, width, CHECKSUM_SPAN)
         assert all({e - 1, e, e + 1} <= lens for e in edges)
         assert {0, width - 1, width} <= lens
+    assert sum(len(range(CHECKSUM_NMAX, w + 1, CHECKSUM_NMAX))
+               for w in CHECKSUM_WIDTHS) == 11
+    assert sorted(g // CHECKSUM_THREADS
+                  for g in adler_trap_groups(CHECKSUM_TILE)) == \
+        sorted(list(range(SLOTS)) * (CHECKSUM_THREADS // SLOTS))
+
+
+@pytest.mark.parametrize("width", CHECKSUM_WIDTHS)
+def test_model_adler_reads_no_padding(width):
+    """The trap rows with random bytes past each length (the kernel cuts
+    every tile at its row's length and reads nothing past it): the model
+    still gives zlib's Adler-32 of each row's first bytes, in two seeded
+    tile orders."""
+    rows, lens = checksum_rows(width)
+    want = [zlib.adler32(r[:n].tobytes()) for r, n in zip(rows, lens)]
+    rng = np.random.default_rng(width)
+    noisy = rng.integers(0, 256, rows.shape, dtype=np.uint8)
+    keep = np.arange(width) < lens[:, None]
+    noisy = np.where(keep, rows, noisy)
+    for seed in (1, 2):
+        assert model_adler_rows(noisy, lens, seed=seed).tolist() == want
+
+
+def test_model_adler_odd_stride_rows():
+    """checksum_odd_stride: rows read as a view at an odd stride (every
+    row at another offset mod 16, the kernel's single-byte loads), random
+    bytes past each length: the model on the view, zlib and the plain
+    version on the zero-padded rows agree."""
+    store, lens = checksum_odd_stride()
+    view = store[:, :-1]
+    assert view.strides[0] % 2 == 1
+    want = [zlib.adler32(r[:n].tobytes()) for r, n in zip(view, lens)]
+    assert model_adler_rows(view, lens).tolist() == want
+    zeroed = np.where(np.arange(view.shape[1]) < lens[:, None], view, 0)
+    assert _plain_rows(pck.adler32_blocks_plain, zeroed.astype(np.uint8),
+                       lens).tolist() == want
 
 
 def test_dispatchers_on_cpu_equal_plain_without_launches():

@@ -19,9 +19,11 @@ import numpy as np
 import pytest
 import torch
 
-from _port_corpus import (CHECKSUM_INITS, CHECKSUM_WIDTHS, RESOLVE_CASES,
-                          V2_SIZES, checksum_buffers, checksum_rows,
-                          checksum_wide_rows, cut_stored_streams,
+from _port_corpus import (CHECKSUM_INITS, CHECKSUM_TILE, CHECKSUM_WIDTHS,
+                          RESOLVE_CASES, V2_SIZES, checksum_buffers,
+                          checksum_ff_rows, checksum_odd_stride,
+                          checksum_rows, checksum_wide_rows,
+                          cut_stored_streams,
                           edge_cases, edge_rows, emit_cases,
                           emit_chunk_cases, emit_pass_inputs,
                           emit_random_cases, emit_unaligned, l6_windows,
@@ -375,11 +377,10 @@ def test_checksum_kernel_equals_plain_on_wide_rows(card):
 
 
 def test_checksum_kernel_equals_plain_on_buffers(card):
-    """crc32_fixed and adler32_fixed (rows of 64 KiB, the last one short:
-    the CRC in one launch, Adler's rows then the one-block fold) equal
-    the plain versions and zlib at every initial value, the CRC's state
-    left zeroed; crc32_device never builds the plain version's host
-    table."""
+    """crc32_fixed and adler32_fixed (tiles of 64 KiB, the last one
+    short, each in one C call) equal the plain versions and zlib at
+    every initial value, both kernels' state left zeroed; crc32_device
+    never builds the plain version's host table."""
     from libdeflate_rsx_tpu_torch.ops import checksums as ck
 
     ck._crc_byte_table.cache_clear()
@@ -407,6 +408,98 @@ def test_checksum_kernel_equals_plain_on_buffers(card):
     assert int(ck.adler32_fixed(t, 0, 7)) == 7
     assert ck.crc32_device(b"", 9, card) == 9
     assert ck.LAUNCHES == before
+
+
+def _adler_kernels(fn) -> list[str]:
+    """The names of the CUDA kernels one call of fn launches
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if "kernel" in e.key]
+
+
+def test_adler_kernel_one_launch_state_and_streams(card):
+    """adler32_fixed on a buffer is one C call and one kernel launch
+    (adler_kernel, torch.profiler); two calls in a row, and calls on two
+    streams, give zlib's value and leave every state zeroed; a batch of
+    rows wider than a tile gives the same results after a narrow batch
+    as alone, and a narrow batch allocates no state."""
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
+
+    data = checksum_buffers()[0]                     # 1 MiB + 3 bytes
+    t = ck._padded(data, ck.CRC_CHUNK, card)
+    for init in (1, 0xFFF0FFF0):
+        before = ck.LAUNCHES
+        got = [int(ck.adler32_fixed(t, len(data), init)) for _ in range(2)]
+        assert ck.LAUNCHES == before + 2
+        assert got == [zlib.adler32(data, init)] * 2
+    names = _adler_kernels(lambda: ck.adler32_fixed(t, len(data), 1))
+    assert len(names) == 1 and "adler_kernel" in names[0], names
+    streams = [torch.cuda.Stream(card), torch.cuda.Stream(card)]
+    outs = []
+    for _ in range(3):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(ck.adler32_fixed(t, len(data), 7))
+    torch.cuda.synchronize()
+    assert [int(o) for o in outs] == [zlib.adler32(data, 7)] * 6
+    assert not any(st.any() for st in ck._STATE.values())
+    wide, lens = checksum_wide_rows()
+    w, n = torch.from_numpy(wide).to(card), torch.from_numpy(lens).to(card)
+    want = [zlib.adler32(r[:k].tobytes()) for r, k in zip(wide, lens)]
+    assert ck.adler32_blocks(w, n).cpu().tolist() == want
+    keys = set(ck._STATE)
+    narrow, nl = checksum_rows(5120)
+    assert ck.adler32_blocks(torch.from_numpy(narrow).to(card),
+                             torch.from_numpy(nl).to(card)).cpu().tolist() \
+        == [zlib.adler32(r[:k].tobytes()) for r, k in zip(narrow, nl)]
+    assert set(ck._STATE) == keys
+    assert ck.adler32_blocks(w, n).cpu().tolist() == want
+    assert not any(st.any() for st in ck._STATE.values())
+
+
+@pytest.mark.parametrize("case", ["ff", "odd_stride", "items"])
+def test_adler_kernel_equals_plain_on_new_traps(card, case):
+    """The Adler traps of the tile design on the card, each with the CRC
+    beside it: all-0xFF rows of one, two and three tiles (the 32-bit
+    bound); rows at an odd stride (single-byte loads) with random bytes
+    past each length, the plain versions on the zero-padded rows; 17
+    rows of 1 MiB (the compress items' shape, tiles spread over the
+    blocks), the last one short. Kernel, plain version and zlib equal."""
+    from libdeflate_rsx_tpu_torch.ops import checksums as ck
+
+    if case == "ff":
+        rows, lens = checksum_ff_rows()
+        view = torch.from_numpy(rows).to(card)
+    elif case == "odd_stride":
+        store, lens = checksum_odd_stride()
+        rows = np.where(np.arange(store.shape[1] - 1) < lens[:, None],
+                        store[:, :-1], 0).astype(np.uint8)
+        view = torch.from_numpy(store).to(card)[:, :-1]
+        assert view.stride(0) % 2 == 1
+    else:
+        data = make_corpus("text", 17 << 20, seed=5)[:(17 << 20) - 1234]
+        rows = np.zeros((17, 1 << 20), np.uint8)
+        rows.reshape(-1)[:len(data)] = np.frombuffer(data, np.uint8)
+        lens = np.array([1 << 20] * 16 + [(1 << 20) - 1234], np.int64)
+        view = torch.from_numpy(rows).to(card)
+    n = torch.from_numpy(lens).to(card)
+    zeroed = torch.from_numpy(rows).to(card)
+    for kernel, plain, ref in ((ck.adler32_blocks, ck.adler32_blocks_plain,
+                                zlib.adler32),
+                               (ck.crc32_blocks, ck.crc32_blocks_plain,
+                                zlib.crc32)):
+        want = [ref(r[:k].tobytes()) for r, k in zip(rows, lens)]
+        before = ck.LAUNCHES
+        assert kernel(view, n).cpu().tolist() == want
+        assert ck.LAUNCHES == before + 1
+        assert plain(zeroed, n).cpu().tolist() == want
+    assert not any(st.any() for st in ck._STATE.values())
 
 
 def test_checksum_kernel_guards(card):
